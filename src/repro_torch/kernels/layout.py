@@ -1,0 +1,98 @@
+"""Packed weight layouts of the serve GEMMs (port of repro.kernels.layout).
+
+The wire format is the reference's, byte for byte: the quantization axis
+K (the GEMM contraction axis) is the major axis of every stream,
+
+  weights W (K, N): codes u8 (K/2, N), scales u8 (K/32, N), meta u8 (K/32, N)
+
+and nibbles pair group-half interleaved: within each group of 32 rows along
+K, byte row ``g*16 + r`` holds row ``g*32 + r`` (low nibble) and row
+``g*32 + 16 + r`` (high nibble). On the card every stream row is N
+contiguous bytes, so neighbouring threads of the CUDA kernels read
+neighbouring bytes.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.dtypes import (
+    FP4_E2M1, exp2int, fp4_value_to_code, round_to_grid,
+)
+from repro_torch.core.formats import mxfp4_components
+from repro_torch.core.m2xfp import sg_em_dequant_with_scale
+from repro_torch.core.packing import group_reshape
+from repro_torch.core.scaling import e8m0_encode, shared_scale_exponent
+
+GROUP = 32
+SUBGROUP = 8
+N_SUB = GROUP // SUBGROUP
+
+__all__ = [
+    "GROUP", "SUBGROUP", "N_SUB", "pack_w_sgem", "pack_w_mxfp4",
+    "interleave_pack", "interleave_unpack",
+]
+
+
+def interleave_pack(codes: torch.Tensor) -> torch.Tensor:
+    """Sign-magnitude 4-bit codes (K, n) -> u8 (K/2, n), group-half pairs."""
+    k, n = codes.shape
+    cg = codes.reshape(k // GROUP, GROUP, n).to(torch.uint8)
+    return ((cg[:, :16] & 0xF) | (cg[:, 16:] << 4)).reshape(k // 2, n)
+
+
+def interleave_unpack(packed: torch.Tensor) -> torch.Tensor:
+    """u8 (K/2, n) -> int32 codes (K, n) (inverse of interleave_pack)."""
+    k2, n = packed.shape
+    pg = packed.reshape(k2 // 16, 16, n)
+    lo = (pg & 0xF).to(torch.int32)
+    hi = (pg >> 4).to(torch.int32)
+    return torch.cat([lo, hi], dim=1).reshape(2 * k2, n)
+
+
+def _pack_meta_fields(fields: torch.Tensor) -> torch.Tensor:
+    """2-bit fields (G, 4, n) -> u8 (G, n), subgroup j at bits 2j..2j+1."""
+    f = fields.to(torch.int32) & 0x3
+    return (f[:, 0] | (f[:, 1] << 2) | (f[:, 2] << 4)
+            | (f[:, 3] << 6)).to(torch.uint8)
+
+
+def _sign_mag(values: torch.Tensor, negative: torch.Tensor) -> torch.Tensor:
+    """FP4 grid values + sign mask -> 4-bit sign-magnitude codes."""
+    mag = fp4_value_to_code(values.abs())
+    return torch.where(negative, mag | 8, mag)
+
+
+def pack_w_sgem(w: torch.Tensor) -> dict:
+    """Sg-EM-2bit (adaptive) pack of weights (K, N), groups along K.
+
+    Returns dict(codes u8 (K/2,N), scales u8 (K/32,N), meta u8 (K/32,N)),
+    all contiguous."""
+    k, n = w.shape
+    wg = group_reshape(w.to(torch.float32).T, GROUP)   # (N, K/32, 32)
+    e = shared_scale_exponent(wg.abs().amax(dim=-1, keepdim=True))
+    _, k_sel, b_val = sg_em_dequant_with_scale(
+        wg, exp2int(e), SUBGROUP, return_codes=True)
+    e_stored = e[..., 0] + b_val                       # (N, K/32)
+    s_final = ((1.0 + k_sel.to(torch.float32) / 4.0)
+               * exp2int(e_stored)[..., None])         # (N, K/32, 4)
+    wsub = wg.reshape(n, k // GROUP, N_SUB, SUBGROUP)
+    q = round_to_grid(wsub / s_final[..., None], FP4_E2M1)
+    codes = _sign_mag(q, wsub < 0).reshape(n, k).T     # (K, N)
+    return {
+        "codes": interleave_pack(codes).contiguous(),
+        "scales": e8m0_encode(e_stored).T.contiguous(),
+        "meta": _pack_meta_fields(k_sel.permute(1, 2, 0)).contiguous(),
+    }
+
+
+def pack_w_mxfp4(w: torch.Tensor) -> dict:
+    """Plain MXFP4 pack of weights (K, N): dict(codes u8 (K/2,N), scales
+    u8 (K/32,N)), contiguous."""
+    k, n = w.shape
+    wt = w.to(torch.float32).T
+    q, e = mxfp4_components(wt)                        # (N, K/32, 32)
+    codes = _sign_mag(q, group_reshape(wt, GROUP) < 0).reshape(n, k).T
+    return {
+        "codes": interleave_pack(codes).contiguous(),
+        "scales": e8m0_encode(e[..., 0]).T.contiguous(),
+    }

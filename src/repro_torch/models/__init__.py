@@ -1,0 +1,2 @@
+"""Dense decoder model of the port: config, numerics, layers, packed
+linear layers, attention over a per-slot KV cache, and the model."""

@@ -1,0 +1,63 @@
+"""Shared model layers: norms, rotary embeddings, MLP, embedding table
+(port of repro.models.layers). bf16 rounds at the reference's points: the
+norm and the rotation compute in f32 and cast back to the input dtype, and
+``silu`` runs in f32 before the cast to bf16."""
+from __future__ import annotations
+
+import torch
+
+from .quant import init_linear, quantized_matmul
+
+__all__ = [
+    "rms_norm", "rope_freqs", "apply_rope", "init_mlp", "mlp_apply",
+    "init_embedding",
+]
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * w.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device="cuda") -> torch.Tensor:
+    """(head_dim/2,) inverse frequencies."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (B, S, H, D); positions: (B, S) int."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    ang = positions[..., None].to(torch.float32) * inv        # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_mlp(gen: torch.Generator, d: int, ff: int, device="cuda") -> dict:
+    return {
+        "gate": init_linear(gen, d, ff, device),
+        "up": init_linear(gen, d, ff, device),
+        "down": init_linear(gen, ff, d, device),
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor, quant: str = "none") -> torch.Tensor:
+    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    g = quantized_matmul(x, p["gate"], quant)
+    u = quantized_matmul(x, p["up"], quant)
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    return quantized_matmul(h, p["down"], quant)
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   device="cuda") -> torch.Tensor:
+    return (torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                        device=device) * 0.02).to(torch.bfloat16)

@@ -1,0 +1,78 @@
+"""Quantized linear layers of the serve path (port of repro.models.quant).
+
+Modes (``ModelConfig.quant``):
+  none  : plain bf16 GEMM with f32 accumulation.
+  serve : the weight is a packed :class:`PackedTensor` resident on the
+          device at its codec's bits per element; the activations are
+          fake-quantized online with the same codec, rounded to bf16, and
+          go through the codec's fused dequant-GEMM -- the hand-written CUDA
+          kernel for a CUDA tensor, its plain version for a CPU tensor.
+
+Training's ``qat`` mode is not ported yet. Every format decision goes
+through the codec registry (``repro_torch.core.codecs``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.codecs import PackedTensor, get_codec, packed_codecs
+from repro_torch.kernels.ops import packed_matmul
+from .numerics import dot_f32acc
+
+__all__ = [
+    "init_linear", "pack_serving_weight", "decode_serving_weight",
+    "quantized_matmul", "PackedTensor",
+]
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                device="cuda") -> torch.Tensor:
+    """Truncated-normal (+-3 sigma) init, fan-in scaled, bf16 (d_in, d_out)."""
+    w = torch.empty((d_in, d_out), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (w * d_in ** -0.5).to(torch.bfloat16)
+
+
+def pack_serving_weight(w: torch.Tensor, fmt: str = "m2xfp") -> PackedTensor:
+    """(K, N) weight -> packed codec streams, groups along K (axis 0)."""
+    codec = get_codec(fmt)
+    if not codec.packed:
+        raise ValueError(f"codec {fmt!r} has no packed serving path; "
+                         f"packable codecs: {', '.join(packed_codecs())}")
+    if w.dim() != 2:
+        raise ValueError(f"pack_serving_weight takes a (K, N) weight, got "
+                         f"shape {tuple(w.shape)}")
+    return PackedTensor(codec.encode(w), tuple(w.shape), fmt)
+
+
+def decode_serving_weight(p: PackedTensor, dtype=None) -> torch.Tensor:
+    """Packed streams -> dense (K, N) weight in the codec's exact dtype
+    (bf16) unless ``dtype`` overrides it."""
+    codec = get_codec(p.codec)
+    k, n = p.shape
+    return codec.decode(p.streams, k, n).to(dtype or codec.decode_dtype)
+
+
+def _serve_matmul(x: torch.Tensor, w: PackedTensor) -> torch.Tensor:
+    """Online activation fake-quant with the weight's codec, bf16 rounding,
+    then the packed GEMM; the f32 result is cast back to ``x.dtype``."""
+    codec = get_codec(w.codec)
+    k = w.shape[0]
+    n = math.prod(w.shape[1:])
+    xq = codec.fake_quant_act(x.to(torch.float32)).to(torch.bfloat16)
+    out = packed_matmul(xq.reshape(-1, k), w.streams, w.codec)
+    return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+def quantized_matmul(x: torch.Tensor, w, quant: str) -> torch.Tensor:
+    """x (..., K) @ w (K, N) under the configured quantization mode. ``w``
+    is a dense tensor for ``none`` and a PackedTensor for ``serve`` (a
+    dense weight under ``serve`` -- one too narrow to pack -- runs the
+    dense GEMM, as in the reference)."""
+    if quant == "serve" and isinstance(w, PackedTensor):
+        return _serve_matmul(x, w)
+    if quant not in ("none", "serve"):
+        raise NotImplementedError(f"quant={quant!r} is not ported yet")
+    return dot_f32acc(x, w).to(x.dtype)
