@@ -3,7 +3,7 @@
     python3 chip_smoke.py            # from the repository root, on the card
 
 Builds the hand-written CUDA kernels of ``src/repro_torch/csrc`` with nvcc
-for sm_90a (into ``build/repro_torch/``), then runs four phases, each
+for sm_90a (into ``build/repro_torch/``), then runs these phases, each
 printing JSON lines:
 
   1. device   -- card, power limit, torch/CUDA versions, kernel build time
@@ -20,6 +20,29 @@ printing JSON lines:
                  through the m2xfp kernel; then one all-slots decode step
                  split into host wall time and device time by kernel
   4. serve    -- the same with the mxfp4 codec
+  5. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
+                 the quantize engine on a 4097-point sweep of [-8, 8] (every
+                 FP4 and FP6 code, midpoint and saturation) and the W4A4 GEMM
+                 against an identity weight on random X streams (every
+                 top-1 code, tie and meta field), both equal to their plain
+                 versions
+  6. w4a4     -- the W4A4 datapath (quantize engine, then the fully packed
+                 GEMM) through ``repro_torch.kernels`` for the seven
+                 projections of one full-width paper-llama2-7b layer at M in
+                 {1, 8, 64, 129, 2048}: streams byte-identical to the plain
+                 packer, the GEMM within TOLERANCE of its plain version and
+                 within twice that of the serve GEMM on the same
+                 fake-quantized activations, rows bit-identical across M, a
+                 planted activation-meta fault flagged at every shape, and
+                 times beside bound, plain and library
+  7. flash    -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
+                 layer's prefill): causal at S = 512 and 2048, S = 2048 with
+                 a 512 window, with softcap 50 on q scaled by 8 (so scores
+                 reach the cap), and with the last 64 keys invalid and a
+                 padded query row; within FLASH_TOLERANCE of its plain
+                 version at the same block_k, four planted faults flagged
+                 (scale, mask, value row, softcap), the padded row 0, and
+                 times
 
 It takes no arguments: the traffic is fixed by the constants below.
 
@@ -61,6 +84,36 @@ TOLERANCE = "sqrt(K) * 2^-24 * (|x| @ |Wdec|)"
 LIBRARY = ("yardstick only, never called by the port: torch.matmul of the "
            "same bf16 x with the decoded bf16 weight, which reads 2 bytes "
            "per weight (3.56x m2xfp's, 3.76x mxfp4's)")
+INT8_OPS = 1979e12                  # dense int8 tensor-core peak
+# W4A4: one paper-llama2-7b layer's projections (q, k, v, o, gate, up, down)
+W4A4_PROJS = [(4096, 4096)] * 4 + [(4096, 11008)] * 2 + [(11008, 4096)]
+W4A4_MS = [1, 8, 64, 129, 2048]
+W4A4_TOLERANCE = "sqrt(K) * 2^-24 * (|Xdec| @ |Wdec|)"
+W4A4_LIBRARY = ("yardstick only, never called by the port: torch.matmul of "
+                "the decoded bf16 X and W, which reads 2 bytes per element "
+                "of each")
+QUANT_LIBRARY = ("none: no single PyTorch call computes the Elem-EM-top1 "
+                 "encode (scale, RTNE FP4, top-1, FP6 refine, pack)")
+# Flash: 32 heads x hd 128, bf16 q/k/v; the reference kernel's KV block.
+FLASH_BH, FLASH_HD = 32, 128
+# (case, S, options, factor on q): the softcap case scales q by 8, so that
+# the scores (then about N(0, 64)) reach the cap of 50.
+FLASH_CASES = [("causal", 512, {}, 1.0), ("causal", 2048, {}, 1.0),
+               ("window_512", 2048, {"window": 512}, 1.0),
+               ("softcap_50_q_x8", 2048, {"softcap": 50.0}, 8.0),
+               ("last_64_keys_invalid", 2048, {}, 1.0)]
+# The bound of ref.flash_attention_tolerance: the f32 roundings of another
+# summation order and of exp/tanh, plus every probability that can round to
+# the neighbouring bf16 value under them, at its full width. Each case must
+# also flag four planted faults: a 2% scale error (q * 1.02), a mask off by
+# one key (pos_q + 1), one key's value row changed, and, in the softcap
+# case, the kernel run without its softcap.
+FLASH_TOLERANCE = "ref.flash_attention_tolerance (flip-aware f32 bound)"
+FLASH_SCALE_FAULT = 1.02
+FLASH_LIBRARY = ("yardstick only, never called by the port: "
+                 "torch.nn.functional.scaled_dot_product_attention on the "
+                 "bf16 q/k/v as (1, BH, S, hd), is_causal=True; causal cases "
+                 "only")
 
 
 def emit(phase: str, **fields) -> None:
@@ -325,15 +378,344 @@ def decode_breakdown(eng, device, steps: int = 3):
          top_kernels_ms={k[:80]: v for k, v in top})
 
 
+def bitmath_phase(gen, device):
+    """The bit helpers of csrc/mx_bits.cuh on every code, through the two
+    W4A4 kernels on constructed inputs (their launches are comparisons and
+    are not counted). Raises unless both equal their plain versions."""
+    from repro_torch.kernels import layout, ref
+    from repro_torch.kernels.m2xfp_matmul import QKERNEL
+    from repro_torch.kernels.m2xfp_quantize import KERNEL as QUANT
+    # Encode: each sweep value leads subgroup 0 of a group anchored at 4.0
+    # (scale 1 while |v| < 8), so it meets RTNE FP4 and, as the top-1, RTNE
+    # FP6 and the bias clamp at every code and midpoint of both grids.
+    sweep = torch.linspace(-8, 8, 4097, device=device)
+    x = torch.zeros(sweep.numel(), 32, device=device)
+    x[:, 0] = sweep
+    x[:, 8] = sweep * 0.5
+    x[:, 24] = 4.0
+    got, want = QUANT(x), ref.m2xfp_quantize_ref(x.T)
+    for s in got:
+        if not torch.equal(got[s], want[s]):
+            raise AssertionError(f"bitmath: quantize stream {s} differs from "
+                                 f"the plain packer on the sweep")
+    # Decode: random X streams (every code byte, meta byte and tie) times an
+    # identity weight, whose Sg-EM decode is exact, give the decoded X.
+    k, m = 64, 4096
+    xp = {"codes": torch.randint(0, 256, (k // 2, m), generator=gen,
+                                 device=device, dtype=torch.uint8),
+          "scales": torch.randint(100, 150, (k // 32, m), generator=gen,
+                                  device=device, dtype=torch.uint8),
+          "meta": torch.randint(0, 256, (k // 32, m), generator=gen,
+                                device=device, dtype=torch.uint8)}
+    eye = torch.eye(k, device=device)
+    wp = layout.pack_w_sgem(eye)
+    if not torch.equal(ref.decode_w_sgem_ref(wp), eye):
+        raise AssertionError("bitmath: the identity weight does not decode "
+                             "exactly")
+    dec = QKERNEL(xp, wp)
+    if not torch.equal(dec, ref.decode_x_elem_em_ref(xp)):
+        raise AssertionError("bitmath: the W4A4 GEMM's X decode differs from "
+                             "the plain Top-1 Decode Unit")
+    torch.cuda.synchronize()
+    emit("bitmath", encode_sweep_points=sweep.numel(),
+         encode_streams_equal=True, decode_columns=m,
+         decode_distinct_code_bytes=int(xp["codes"].unique().numel()),
+         decode_distinct_meta_bytes=int(xp["meta"].unique().numel()),
+         decode_equal=True)
+
+
+def _w4a4_bound(m: int, k: int, n: int):
+    """(quantize, qmatmul) least times (ms) with what bounds them, and bytes:
+    the quantize engine reads M*K*2 and writes M*K*(1/2 + 2/32); the GEMM
+    reads M*K*(1/2 + 2/32) + K*N*(1/2 + 2/32), writes M*N*4 and does
+    2*M*K*N operations against the int8 peak: both decoded operands are
+    integers times 2^-3 and a power of two per 32-group (X at most 60, W at
+    most 84), so int8 products summed exactly in int32 per group and
+    rescaled in f32 compute the same function."""
+    packed = 0.5 + 2 / 32
+    q_bytes = m * k * 2 + m * k * packed
+    g_bytes = m * k * packed + k * n * packed + m * n * 4
+    t_bytes, t_ops = g_bytes / HBM_BYTES_PER_S, 2 * m * k * n / INT8_OPS
+    return ((q_bytes / HBM_BYTES_PER_S * 1e3, "bytes", q_bytes),
+            (max(t_bytes, t_ops) * 1e3,
+             "bytes" if t_bytes >= t_ops else "operations", g_bytes))
+
+
+def w4a4_phase(timer, gen, device, kernels):
+    """The W4A4 datapath through the public entry points. The launch counts
+    are zeroed just before the path runs (every projection, every M) and
+    read just after; the checks and timings come afterwards. Returns the
+    summary entries of the two kernels."""
+    from repro_torch import kernels as K
+    from repro_torch.core.m2xfp import quantize_act_m2xfp
+    from repro_torch.kernels import layout, ref
+    from repro_torch.kernels.m2xfp_matmul import QKERNEL
+    from repro_torch.kernels.m2xfp_quantize import KERNEL as QUANT
+    weights = [layout.pack_w_sgem(torch.randn(k, n, generator=gen,
+                                              device=device) * 0.02)
+               for k, n in W4A4_PROJS]
+    # LLM-like activations: normal entries with log-normal channel scales
+    xs = {k: (torch.randn(W4A4_MS[-1], k, generator=gen, device=device)
+              * torch.exp(0.8 * torch.randn(1, k, generator=gen,
+                                            device=device))).to(torch.bfloat16)
+          for k in sorted({k for k, _ in W4A4_PROJS})}
+    torch.cuda.synchronize()
+
+    for kern in kernels:                  # the path's counts start here
+        kern.launches = 0
+    outs = {}
+    for p, ((k, _), wp) in enumerate(zip(W4A4_PROJS, weights)):
+        for m in W4A4_MS:
+            xp = K.m2xfp_quantize(xs[k][:m])
+            outs[p, m] = (xp, K.m2xfp_qmatmul(xp, wp))
+    torch.cuda.synchronize()
+    launches = {QUANT.name: QUANT.launches, QKERNEL.name: QKERNEL.launches}
+    others = {k.name: k.launches for k in kernels
+              if k is not QUANT and k is not QKERNEL}
+    want_launches = len(W4A4_PROJS) * len(W4A4_MS)
+    if any(others.values()) or set(launches.values()) != {want_launches}:
+        raise AssertionError(f"w4a4 path launched {launches} and {others}; "
+                             f"expected {want_launches} of each W4A4 kernel")
+    emit("w4a4", path="repro_torch.kernels.m2xfp_quantize -> m2xfp_qmatmul",
+         projections=len(W4A4_PROJS), M=W4A4_MS, launches=launches)
+
+    agg = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+           for name in launches}
+    qmm_err, quant_err, qmm_by, timed = 0.0, 0, set(), set()
+    for p, ((k, n), wp) in enumerate(zip(W4A4_PROJS, weights)):
+        wdec = ref.decode_w_sgem_ref(wp)
+        wdec16 = wdec.to(torch.bfloat16)
+        for m in W4A4_MS:
+            x = xs[k][:m]
+            xp, got = outs[p, m]
+            want_xp = ref.m2xfp_quantize_ref(x.T)
+            for s in xp:                                           # (a)
+                if xp[s].shape != want_xp[s].shape:
+                    raise AssertionError(f"w4a4 K={k} M={m}: quantize "
+                                         f"stream {s} has the wrong shape")
+                s_err = int((xp[s].int() - want_xp[s].int()).abs().max())
+                quant_err = max(quant_err, s_err)
+                if s_err:
+                    raise AssertionError(f"w4a4 K={k} M={m}: quantize "
+                                         f"stream {s} differs from the plain "
+                                         f"packer")
+            xdec = ref.decode_x_elem_em_ref(xp)
+            tol = k ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(xdec.abs(),
+                                                         wdec.abs())
+            diff = (got - ref.m2xfp_qmatmul_ref(xp, wp)).abs()     # (b)
+            if bool((diff > tol).any()):
+                raise AssertionError(f"w4a4 K={k} N={n} M={m}: GEMM outside "
+                                     f"{W4A4_TOLERANCE} of its plain version")
+            serve = K.m2xfp_matmul(quantize_act_m2xfp(x).to(torch.bfloat16),
+                                   wp)                             # (c)
+            sdiff = (got - serve).abs()
+            if bool((sdiff > 2 * tol).any()):
+                raise AssertionError(f"w4a4 K={k} N={n} M={m}: GEMM outside "
+                                     f"twice {W4A4_TOLERANCE} of the serve "
+                                     f"GEMM on quantize_act_m2xfp(x)")
+            bad = dict(xp)                                         # (e)
+            bad["meta"] = xp["meta"].clone()
+            bad["meta"][0] ^= 0x02
+            if torch.equal(ref.decode_x_elem_em_ref(bad), xdec):
+                raise AssertionError("w4a4: the planted fault changed nothing")
+            caught = (got - ref.m2xfp_qmatmul_ref(bad, wp)).abs() > tol
+            if not bool(caught.any()):
+                raise AssertionError(f"w4a4 K={k} N={n} M={m}: a one-field "
+                                     f"fault of the X meta passed "
+                                     f"{W4A4_TOLERANCE}")
+            err = float(diff.max())
+            qmm_err = max(qmm_err, err)
+            line = dict(projection=p, K=k, N=n, M=m, streams_equal=True,
+                        tolerance=W4A4_TOLERANCE, max_abs_err=err,
+                        max_ratio_to_tolerance=float(
+                            (diff / tol.clamp_min(1e-38)).max()),
+                        max_ratio_to_tolerance_vs_serve_gemm=float(
+                            (sdiff / (2 * tol).clamp_min(1e-38)).max()),
+                        bit_equal_to_serve_gemm=torch.equal(got, serve),
+                        planted_fault_flagged_share=float(
+                            caught.float().mean()))
+            if (k, n, m) not in timed:            # time each shape once
+                timed.add((k, n, m))
+                xdec16 = xdec.to(torch.bfloat16)
+                (bq, byq, nq), (bg, byg, ng) = _w4a4_bound(m, k, n)
+                t_q = timer(lambda: K.m2xfp_quantize(x))
+                t_qp = timer(lambda: ref.m2xfp_quantize_ref(x.T), iters=5,
+                             warmup=1)
+                t_g = timer(lambda: K.m2xfp_qmatmul(xp, wp))
+                t_gp = timer(lambda: ref.m2xfp_qmatmul_ref(xp, wp), iters=5,
+                             warmup=1)
+                t_gl = timer(lambda: torch.matmul(xdec16, wdec16))
+                line.update(
+                    quantize=dict(kernel_ms=t_q, plain_ms=t_qp,
+                                  library_ms=None, bound_ms=bq, bound_by=byq,
+                                  bytes=nq),
+                    qmatmul=dict(kernel_ms=t_g, plain_ms=t_gp,
+                                 library_ms=t_gl, library=W4A4_LIBRARY,
+                                 bound_ms=bg, bound_by=byg, bytes=ng))
+                if m == 8:
+                    reps = W4A4_PROJS.count((k, n))
+                    for name, vals in (
+                            (QUANT.name, (t_q, t_qp, bq, None)),
+                            (QKERNEL.name, (t_g, t_gp, bg, t_gl))):
+                        for key, t in zip(("ms", "plain_ms", "bound_ms",
+                                           "library_ms"), vals):
+                            agg[name][key] = (None if t is None
+                                              else agg[name][key] + reps * t)
+                    qmm_by.add(byg)
+            emit("w4a4", **line)
+        for small in (1, 8):
+            for big in (64, 129, 2048):
+                if not torch.equal(outs[p, small][1], outs[p, big][1][:small]):
+                    raise AssertionError(f"w4a4 K={k} N={n}: rows of M={small}"
+                                         f" differ from those of M={big}")
+        emit("w4a4", projection=p, K=k, N=n, row_independent=True)   # (d)
+        del wdec, wdec16
+    measured = ("the 7 projections of one paper-llama2-7b layer at M=8 "
+                "(sum)")
+    return {
+        QUANT.name: dict(
+            name=QUANT.name, route="cuda",
+            source=str(QUANT.source.relative_to(ROOT)),
+            replaces="src/repro/kernels/m2xfp_quantize.py:77",
+            launches=launches[QUANT.name], max_abs_err=float(quant_err),
+            bound_by="bytes", measured_over=measured, library=QUANT_LIBRARY,
+            **agg[QUANT.name]),
+        QKERNEL.name: dict(
+            name=QKERNEL.name, route="cuda",
+            source=str(QKERNEL.source.relative_to(ROOT)),
+            replaces="src/repro/kernels/m2xfp_matmul.py:180",
+            launches=launches[QKERNEL.name], max_abs_err=qmm_err,
+            bound_by="bytes" if qmm_by == {"bytes"} else "operations",
+            measured_over=measured, library=W4A4_LIBRARY,
+            **agg[QKERNEL.name]),
+    }
+
+
+def flash_phase(timer, gen, device, kernels):
+    """Flash attention through its entry point; counts zeroed just before
+    the five cases run and read just after, checks and timings afterwards.
+    Returns the kernel's summary entry (timed at causal S = 2048)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    bh, hd, block_k = FLASH_BH, FLASH_HD, ref.FLASH_BLOCK_K
+    runs = []
+    for name, s, kw, q_scale in FLASH_CASES:
+        q, k, v = (torch.randn(bh, s, hd, generator=gen, device=device)
+                   for _ in range(3))
+        q, k, v = ((q * q_scale).to(torch.bfloat16), k.to(torch.bfloat16),
+                   v.to(torch.bfloat16))
+        pos_q = torch.arange(s, device=device, dtype=torch.int32).expand(
+            bh, s).contiguous()
+        pos_k = pos_q.clone()
+        if name == "last_64_keys_invalid":
+            pos_k[:, -64:] = -1
+            pos_q[:, -1] = -1             # a padded query: no valid key
+        runs.append((name, s, kw, q_scale, q, k, v, pos_q, pos_k))
+    torch.cuda.synchronize()
+
+    for kern in kernels:                  # the path's counts start here
+        kern.launches = 0
+    outs = [flash_attention_kernel(q, k, v, pq, pk, block_k=block_k, **kw)
+            for _, _, kw, _, q, k, v, pq, pk in runs]
+    torch.cuda.synchronize()
+    launches = FLASH.launches
+    others = {k.name: k.launches for k in kernels if k is not FLASH}
+    if any(others.values()) or launches != len(runs):
+        raise AssertionError(f"flash path launched {launches} and {others}")
+
+    summary, flash_err = None, 0.0
+    for (name, s, kw, q_scale, q, k, v, pq, pk), got in zip(runs, outs):
+        def plain(q=q, k=k, v=v, pq=pq, pk=pk, kw=kw):
+            return ref.flash_attention_ref(q, k, v, pq, pk, block_k=block_k,
+                                           **kw)
+
+        want = plain()
+        tol = ref.flash_attention_tolerance(q, k, v, pq, pk, block_k=block_k,
+                                            **kw)
+        diff = (got - want).abs()
+        if bool((diff > tol).any()):
+            raise AssertionError(f"flash {name} S={s}: outside "
+                                 f"{FLASH_TOLERANCE} of its plain version")
+        v_bad = v.clone()
+        v_bad[:, 0] += 1.0                # key 0's value row
+        faults = {"value_row": plain(v=v_bad),
+                  "scale_x1.02": plain(q=q * FLASH_SCALE_FAULT),
+                  "mask_off_by_one": plain(pq=torch.where(pq >= 0, pq + 1,
+                                                          pq))}
+        if "softcap" in kw:               # the kernel without its softcap
+            faults["no_softcap"] = flash_attention_kernel(
+                q, k, v, pq, pk, block_k=block_k,
+                window=kw.get("window", 1 << 30))
+        flagged = {}
+        for fault, out in faults.items():
+            held = want if fault == "no_softcap" else got
+            caught = (held - out).abs() > tol
+            if not bool(caught.any()):
+                raise AssertionError(f"flash {name} S={s}: the planted "
+                                     f"fault {fault} passed {FLASH_TOLERANCE}")
+            flagged[fault] = float(caught.float().mean())
+        padded = {}
+        if name == "last_64_keys_invalid":
+            if not bool((got[:, -1] == 0).all()):
+                raise AssertionError("flash: a query with no valid key is "
+                                     "not 0")
+            padded = dict(padded_query_row_zero=True)
+        window = kw.get("window", 1 << 30)
+        valid = ((pk >= 0)[:, None, :] & (pq[:, :, None] >= pk[:, None, :])
+                 & (pq[:, :, None] - pk[:, None, :] < window))
+        share = float(valid.sum()) / valid.numel()
+        nbytes = 3 * bh * s * hd * 2 + bh * s * hd * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 4 * bh * s * s * hd * share / BF16_FLOPS
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        t_k = timer(lambda: flash_attention_kernel(q, k, v, pq, pk,
+                                                   block_k=block_k, **kw))
+        t_p = timer(plain, iters=5, warmup=1)
+        q4, k4, v4 = q[None], k[None], v[None]        # (1, BH, S, hd)
+        t_l = (timer(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)) if name == "causal" else None)
+        err = float(diff.max())
+        flash_err = max(flash_err, err)
+        emit("flash", case=name, BH=bh, S=s, hd=hd, block_k=block_k,
+             q_scale=q_scale, **{key: val for key, val in kw.items()},
+             tolerance=FLASH_TOLERANCE, max_abs_err=err,
+             median_tolerance=float(tol.median()),
+             max_ratio_to_tolerance=float((diff / tol.clamp_min(1e-38)).max()),
+             planted_fault_flagged_share=flagged,
+             **padded, unmasked_share=share, kernel_ms=t_k, plain_ms=t_p,
+             library_ms=t_l, library=FLASH_LIBRARY, bound_ms=b_ms,
+             bound_by=b_by, bytes=nbytes, launches=launches)
+        if name == "causal" and s == 2048:
+            summary = dict(
+                name=FLASH.name, route="cuda",
+                source=str(FLASH.source.relative_to(ROOT)),
+                replaces="src/repro/kernels/flash_attention.py:78",
+                launches=launches, ms=t_k, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+                library=FLASH_LIBRARY,
+                measured_over=f"causal, BH={bh}, S=2048, hd={hd}, "
+                              f"block_k={block_k}")
+        del faults, want, tol, diff
+    summary["max_abs_err"] = flash_err
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script measures the port "
                  "on an H100 and has nothing to report without one")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
     from repro_torch.kernels.m2xfp_matmul import KERNEL as M2XFP
+    from repro_torch.kernels.m2xfp_matmul import QKERNEL
+    from repro_torch.kernels.m2xfp_quantize import KERNEL as QUANT
     from repro_torch.kernels.mxfp4_matmul import KERNEL as MXFP4
 
+    t_start = time.perf_counter()
     device = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -351,7 +733,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     summary = kernel_phase(timer, gen, device)
 
-    kernels = (M2XFP, MXFP4)
+    kernels = (M2XFP, MXFP4, QUANT, QKERNEL, FLASH)
     eng, summary["m2xfp_matmul"]["launches"] = serve_phase(
         "m2xfp", device, M2XFP, kernels)
     decode_breakdown(eng, device)
@@ -362,10 +744,19 @@ def main() -> int:
         "mxfp4", device, MXFP4, kernels)
     decode_breakdown(eng, device)
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bitmath_phase(gen, device)
+    summary.update(w4a4_phase(timer, gen, device, kernels))
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["flash_attention"] = flash_phase(timer, gen, device, kernels)
 
     for name, s in summary.items():
         if s["launches"] < 1:
             raise AssertionError(f"{name} was never launched by its path")
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": list(summary.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,31 +30,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mx_bits.cuh"
+
 namespace mx {
 
-constexpr int kGroup = 32;       // quantization group along K
 constexpr int kRows = 8;         // output rows per thread (row tile)
 constexpr int kBlockN = 64;      // output columns (threads) per block
 constexpr int kTileGroups = 8;   // groups of x staged per __syncthreads
 constexpr int kTileK = kTileGroups * kGroup;
-
-// 2^e for integer e, clamped to the normal f32 range [-126, 127] (exact).
-__device__ __forceinline__ float exp2i(int e) {
-  e = max(-126, min(127, e));
-  return __int_as_float((e + 127) << 23);
-}
-
-// E2M1 magnitude code (0..7) -> {0, .5, 1, 1.5, 2, 3, 4, 6}.
-__device__ __forceinline__ float fp4_mag(int c) {
-  const float normal = exp2i((c >> 1) - 1) * (1.0f + 0.5f * (float)(c & 1));
-  return c == 0 ? 0.0f : (c == 1 ? 0.5f : normal);
-}
-
-// Sign-magnitude FP4 code times its (exact, power-of-two-ish) group scale.
-__device__ __forceinline__ float decode(int code, float scale) {
-  const float w = fp4_mag(code & 7) * scale;
-  return (code & 8) ? -w : w;
-}
 
 template <bool kMeta>
 __global__ void __launch_bounds__(kBlockN)
@@ -91,7 +74,7 @@ dequant_gemm(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ co
       if (kMeta) {
         const int mt = meta[(size_t)g * N + n];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sub[j] = (1.0f + 0.25f * (float)((mt >> (2 * j)) & 3)) * s;
+        for (int j = 0; j < 4; ++j) sub[j] = sgem_sub_scale(mt, j, s);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j) sub[j] = s;

@@ -7,11 +7,13 @@ seconds). A library is rebuilt when it is older than any source under
 ``csrc``. :func:`build` starts one ``nvcc`` per stale source, all at once,
 and waits for them; a kernel builds itself at first launch otherwise.
 
-:class:`CudaKernel` is the launcher every kernel module wraps: it checks
-device, dtype, shape and contiguity, allocates the f32 output, launches on
-PyTorch's current stream, raises if the C call reports a CUDA error, and
+:class:`Binding` is what every kernel object builds on: it binds the C
+entry point ``int <name>(..., stream)`` (a ``cudaError_t``), launches on
+PyTorch's current stream, raises if the call reports a CUDA error, and
 counts its launches (``launches``) so a run can show that its main path
-went through the kernel.
+went through the kernel. Each kernel object checks device, dtype, shape
+and contiguity of its own operands and allocates its outputs;
+:class:`CudaKernel` is the one of the two dequant-GEMMs.
 """
 from __future__ import annotations
 
@@ -24,11 +26,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "KERNEL_NAMES", "nvcc", "build", "CudaKernel"]
+__all__ = ["CSRC", "BUILD_DIR", "KERNEL_NAMES", "nvcc", "build", "Binding",
+           "CudaKernel", "check_cuda", "check_k", "check_stream"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNEL_NAMES = ("m2xfp_matmul", "mxfp4_matmul")
+KERNEL_NAMES = ("m2xfp_matmul", "mxfp4_matmul", "m2xfp_quantize",
+                "m2xfp_qmatmul", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -89,19 +93,13 @@ def build(names=KERNEL_NAMES) -> dict:
     return {"seconds": time.perf_counter() - t0, "ptxas": reports}
 
 
-class CudaKernel:
-    """ctypes binding of one ``csrc/<name>.cu`` dequant-GEMM.
+class Binding:
+    """ctypes binding of the C entry point ``int <name>(<argtypes>...,
+    stream)`` of ``csrc/<name>.cu``, which returns a ``cudaError_t``."""
 
-    The C entry point is ``int <name>(x, <streams>..., out, M, K, N,
-    stream)`` returning a ``cudaError_t``; ``streams`` names the packed
-    u8 streams it reads, in order, with their row divisor along K
-    (codes: K/2 rows, scales and meta: K/32 rows)."""
-
-    ROW_DIV = {"codes": 2, "scales": 32, "meta": 32}
-
-    def __init__(self, name: str, streams: tuple):
+    def __init__(self, name: str, argtypes: list):
         self.name = name
-        self.streams = streams
+        self.argtypes = argtypes + [ctypes.c_void_p]      # + the stream
         self.launches = 0
         self._fn = None
         self._err = None
@@ -115,8 +113,7 @@ class CudaKernel:
             build((self.name,))
             lib = ctypes.CDLL(str(_lib_path(self.name)))
             fn = getattr(lib, self.name)
-            fn.argtypes = ([ctypes.c_void_p] * (2 + len(self.streams))
-                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             err = getattr(lib, f"{self.name}_error")
             err.argtypes = [ctypes.c_int]
@@ -124,41 +121,77 @@ class CudaKernel:
             self._fn, self._err = fn, err
         return self._fn
 
-    def __call__(self, x: torch.Tensor, w: dict) -> torch.Tensor:
-        """x (M, K) bf16 on a CUDA device @ packed W (K, N) -> f32 (M, N)."""
-        if not x.is_cuda:
-            raise ValueError(f"{self.name}: x must be a CUDA tensor, got "
-                             f"{x.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{self.name}: x must be bfloat16, got {x.dtype}")
-        if x.dim() != 2 or not x.is_contiguous():
-            raise ValueError(f"{self.name}: x must be a contiguous (M, K) "
-                             f"matrix, got shape {tuple(x.shape)} strides "
-                             f"{x.stride()}")
-        m, k = x.shape
-        if k % 32:
-            raise ValueError(f"{self.name}: K={k} is not a multiple of the "
-                             f"32-element quantization group")
-        n = w["codes"].shape[1]
-        for s in self.streams:
-            t = w[s]
-            want = (k // self.ROW_DIV[s], n)
-            if t.dtype != torch.uint8 or tuple(t.shape) != want:
-                raise ValueError(f"{self.name}: stream {s!r} must be uint8 "
-                                 f"{want}, got {t.dtype} {tuple(t.shape)}")
-            if t.device != x.device or not t.is_contiguous():
-                raise ValueError(f"{self.name}: stream {s!r} must be "
-                                 f"contiguous on {x.device}")
-        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        if m == 0 or n == 0:
-            return out
+    def launch(self, device: torch.device, *args, where: str) -> None:
+        """Call the entry point on ``device``'s current stream; raise on a
+        CUDA error (``where`` names the launch), else count the launch."""
         fn = self._bind()
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), *(w[s].data_ptr() for s in self.streams),
-                out.data_ptr(), m, k, n, stream)
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} "
                                f"({self._err(rc).decode()}) at launch with "
-                               f"M={m} K={k} N={n}")
+                               f"{where}")
         self.launches += 1
+
+
+def check_cuda(name: str, what: str, t: torch.Tensor, dtypes: tuple,
+               ndim: int) -> None:
+    """``t`` must be a contiguous CUDA tensor of ``ndim`` dims and one of
+    ``dtypes``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: {what} must be a CUDA tensor, got "
+                         f"{t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: {what} must be "
+                         f"{' or '.join(str(d).replace('torch.', '') for d in dtypes)}"
+                         f", got {t.dtype}")
+    if t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be a contiguous {ndim}-d "
+                         f"tensor, got shape {tuple(t.shape)} strides "
+                         f"{t.stride()}")
+
+
+def check_stream(name: str, what: str, t: torch.Tensor, shape: tuple,
+                 device: torch.device) -> None:
+    """A packed stream must be contiguous uint8 of ``shape`` on ``device``."""
+    if t.dtype != torch.uint8 or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: stream {what!r} must be uint8 {shape}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: stream {what!r} must be contiguous on "
+                         f"{device}")
+
+
+def check_k(name: str, k: int) -> None:
+    if k % 32:
+        raise ValueError(f"{name}: K={k} is not a multiple of the 32-element "
+                         f"quantization group")
+
+
+class CudaKernel(Binding):
+    """One of the two dequant-GEMMs: ``int <name>(x, <streams>..., out, M,
+    K, N, stream)``; ``streams`` names the packed u8 streams it reads, in
+    order (codes: K/2 rows, scales and meta: K/32 rows)."""
+
+    ROW_DIV = {"codes": 2, "scales": 32, "meta": 32}
+
+    def __init__(self, name: str, streams: tuple):
+        super().__init__(name, [ctypes.c_void_p] * (2 + len(streams))
+                         + [ctypes.c_int] * 3)
+        self.streams = streams
+
+    def __call__(self, x: torch.Tensor, w: dict) -> torch.Tensor:
+        """x (M, K) bf16 on a CUDA device @ packed W (K, N) -> f32 (M, N)."""
+        check_cuda(self.name, "x", x, (torch.bfloat16,), 2)
+        m, k = x.shape
+        check_k(self.name, k)
+        n = w["codes"].shape[1]
+        for s in self.streams:
+            check_stream(self.name, s, w[s], (k // self.ROW_DIV[s], n),
+                         x.device)
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        if m == 0 or n == 0:
+            return out
+        self.launch(x.device, x.data_ptr(),
+                    *(w[s].data_ptr() for s in self.streams),
+                    out.data_ptr(), m, k, n, where=f"M={m} K={k} N={n}")
         return out

@@ -4,6 +4,7 @@ The wire format is the reference's, byte for byte: the quantization axis
 K (the GEMM contraction axis) is the major axis of every stream,
 
   weights W (K, N): codes u8 (K/2, N), scales u8 (K/32, N), meta u8 (K/32, N)
+  activations X^T (K, M): the same three streams with N -> M
 
 and nibbles pair group-half interleaved: within each group of 32 rows along
 K, byte row ``g*16 + r`` holds row ``g*32 + r`` (low nibble) and row
@@ -19,7 +20,9 @@ from repro_torch.core.dtypes import (
     FP4_E2M1, exp2int, fp4_value_to_code, round_to_grid,
 )
 from repro_torch.core.formats import mxfp4_components
-from repro_torch.core.m2xfp import sg_em_dequant_with_scale
+from repro_torch.core.m2xfp import (
+    elem_em_encode_parts, sg_em_dequant_with_scale,
+)
 from repro_torch.core.packing import group_reshape
 from repro_torch.core.scaling import e8m0_encode, shared_scale_exponent
 
@@ -29,7 +32,7 @@ N_SUB = GROUP // SUBGROUP
 
 __all__ = [
     "GROUP", "SUBGROUP", "N_SUB", "pack_w_sgem", "pack_w_mxfp4",
-    "interleave_pack", "interleave_unpack",
+    "pack_x_elem_em", "interleave_pack", "interleave_unpack",
 ]
 
 
@@ -95,4 +98,22 @@ def pack_w_mxfp4(w: torch.Tensor) -> dict:
     return {
         "codes": interleave_pack(codes).contiguous(),
         "scales": e8m0_encode(e[..., 0]).T.contiguous(),
+    }
+
+
+def pack_x_elem_em(x: torch.Tensor) -> dict:
+    """Elem-EM-top1 pack of activations x (M, K) into the K-major layout.
+
+    Returns dict(codes u8 (K/2,M), scales u8 (K/32,M), meta u8 (K/32,M)),
+    all contiguous. Decoding the streams gives ``quantize_act_m2xfp(x)``
+    exactly."""
+    m, k = x.shape
+    xg = group_reshape(x.to(torch.float32), GROUP)     # (M, K/32, 32)
+    e = shared_scale_exponent(xg.abs().amax(dim=-1, keepdim=True))
+    q4, _, _, meta, _ = elem_em_encode_parts(xg, exp2int(e), SUBGROUP)
+    codes = _sign_mag(q4, xg < 0).reshape(m, k).T      # (K, M)
+    return {
+        "codes": interleave_pack(codes).contiguous(),
+        "scales": e8m0_encode(e[..., 0]).T.contiguous(),
+        "meta": _pack_meta_fields(meta.permute(1, 2, 0)).contiguous(),
     }

@@ -1,5 +1,6 @@
 """Tests of the port that need the card: the CUDA kernels against their
-plain versions, and the engine's launches. Each decides inside its body
+plain versions (the two dequant-GEMMs, the quantize engine, the W4A4 GEMM
+and flash attention), and the engine's launches. Each decides inside its body
 whether there is a CUDA device and skips without one. This file imports no
 JAX, so it also runs where only the port is installed:
 
@@ -8,8 +9,13 @@ JAX, so it also runs where only the port is installed:
 import pytest
 import torch
 
+from repro_torch.core.m2xfp import quantize_act_m2xfp
 from repro_torch.kernels import layout, ops, ref
+from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.m2xfp_matmul import KERNEL as M2XFP_KERNEL
+from repro_torch.kernels.m2xfp_matmul import QKERNEL
+from repro_torch.kernels.m2xfp_quantize import KERNEL as QUANTIZE_KERNEL
 from repro_torch.kernels.mxfp4_matmul import KERNEL as MXFP4_KERNEL
 
 CODECS = {
@@ -67,3 +73,94 @@ def test_engine_on_card_launches_kernel_per_projection():
     outs = eng.generate([[1, 2, 3], [4, 5, 6, 7, 8, 9, 10]], 4)
     assert all(len(o) == 4 for o in outs)
     assert M2XFP_KERNEL.launches - before == 7 * cfg.n_layers * eng.stats.steps
+
+
+@pytest.mark.gpu
+def test_cuda_quantize_vs_plain():
+    """The quantize engine's streams equal the plain packer's byte for byte,
+    from bf16 and from f32, at an M and a K off every tile; one launch
+    counted per call; a refused dtype and K."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(2)
+    x = (torch.randn(77, 11008, generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    x[0, :32] = 0.0                                    # an all-zero group
+    for xin in (x, x.float()):
+        before = QUANTIZE_KERNEL.launches
+        got = ops.m2xfp_quantize(xin)
+        assert QUANTIZE_KERNEL.launches == before + 1
+        want = ref.m2xfp_quantize_ref(xin.T)
+        for s in ("codes", "scales", "meta"):
+            assert torch.equal(got[s], want[s]), s
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ops.m2xfp_quantize(x.half())
+    with pytest.raises(ValueError, match="multiple of the 32"):
+        ops.m2xfp_quantize(x[:, :11008 - 16].contiguous())
+
+
+@pytest.mark.gpu
+def test_cuda_qmatmul_vs_plain():
+    """The W4A4 GEMM within sqrt(K)*2^-24*(|Xdec| @ |Wdec|) of its plain
+    version and of the serve GEMM on the same fake-quantized activations,
+    rows independent of M, one launch per call, a refused K mismatch."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(3)
+    k, n = 4096, 200
+    wp = layout.pack_w_sgem(torch.randn(k, n, generator=gen,
+                                        device="cuda") * 0.02)
+    x = torch.randn(129, k, generator=gen, device="cuda").to(torch.bfloat16)
+    xp = ops.m2xfp_quantize(x)
+    before = QKERNEL.launches
+    got = ops.m2xfp_qmatmul(xp, wp)
+    assert QKERNEL.launches == before + 1
+    xdec = ref.decode_x_elem_em_ref(xp)
+    bound = k ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(
+        xdec.abs(), ref.decode_w_sgem_ref(wp).abs())
+    assert bool(((got - ref.m2xfp_qmatmul_ref(xp, wp)).abs() <= bound).all())
+    serve = ops.m2xfp_matmul(quantize_act_m2xfp(x).to(torch.bfloat16), wp)
+    assert bool(((got - serve).abs() <= 2 * bound).all())
+    for m in (1, 8, 64):
+        part = ops.m2xfp_qmatmul(ops.m2xfp_quantize(x[:m].contiguous()), wp)
+        assert torch.equal(part, got[:m]), m
+    with pytest.raises(ValueError, match="stream 'w codes'"):
+        ops.m2xfp_qmatmul(xp, layout.pack_w_sgem(
+            torch.zeros(k // 2, n, device="cuda")))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_vs_plain():
+    """Flash attention within ref.flash_attention_tolerance of its plain
+    version at the same block_k, with a window, a softcap on q scaled by 8
+    (scores reach the cap), invalid keys, a padded query row (gives 0) and
+    tails; one launch per call; the kernel without its softcap and a 2%
+    scale error both flagged; a refused head dim."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(4)
+    bh, s, hd = 4, 300, 128
+    q, k, v = (torch.randn(bh, s, hd, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    pos = torch.arange(s, device="cuda", dtype=torch.int32).expand(
+        bh, s).contiguous()
+    pos_k = pos.clone()
+    pos_k[:, -7:] = -1
+    pos_q = pos.clone()
+    pos_q[:, -1] = -1
+    q8 = (q.float() * 8).to(torch.bfloat16)
+    for qq, kw in ((q, dict()), (q, dict(window=100)),
+                   (q8, dict(softcap=50.0))):
+        args = (qq, k, v, pos_q, pos_k)
+        before = FLASH_KERNEL.launches
+        got = flash_attention_kernel(*args, block_k=128, **kw)
+        assert FLASH_KERNEL.launches == before + 1
+        want = ref.flash_attention_ref(*args, block_k=128, **kw)
+        tol = ref.flash_attention_tolerance(*args, block_k=128, **kw)
+        assert bool(((got - want).abs() <= tol).all()), kw
+        assert bool((got[:, -1] == 0).all())
+        scaled = ref.flash_attention_ref(qq * 1.02, *args[1:], block_k=128,
+                                         **kw)
+        assert bool(((got - scaled).abs() > tol).any()), kw
+    no_cap = flash_attention_kernel(q8, k, v, pos_q, pos_k, block_k=128)
+    assert bool(((no_cap - want).abs() > tol).any())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_kernel(*(torch.zeros(1, 4, 300, device="cuda")
+                                 for _ in range(3)), pos[:1, :4], pos[:1, :4])

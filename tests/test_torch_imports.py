@@ -32,4 +32,5 @@ def test_every_port_module_is_scanned():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in FILES if "repro_torch" in p.parts}
     assert {"serve/engine.py", "kernels/ops.py", "core/codecs.py",
-            "convert.py", "models/model.py"} <= names
+            "convert.py", "models/model.py", "kernels/m2xfp_quantize.py",
+            "kernels/m2xfp_matmul.py", "kernels/flash_attention.py"} <= names
