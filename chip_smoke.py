@@ -6,7 +6,9 @@ Builds the hand-written CUDA kernels of ``src/repro_torch/csrc`` with nvcc
 for sm_90a (into ``build/repro_torch/``), then runs these phases, each
 printing JSON lines:
 
-  1. device   -- card, power limit, torch/CUDA versions, kernel build time
+  1. device   -- card, power limit, torch/CUDA versions, kernel build time,
+                 ptxas registers and spills (the flash kernel must spill
+                 nothing)
   2. kernels  -- each dequant-GEMM at the full-width paper-llama2-7b
                  projection shapes and M in {1, 8, 64, 129}: held against its
                  plain version within the expected size of f32 rounding
@@ -42,7 +44,7 @@ printing JSON lines:
                  padded query row; within FLASH_TOLERANCE of its plain
                  version at the same block_k, four planted faults flagged
                  (scale, mask, value row, softcap), the padded row 0, and
-                 times
+                 times beside bound, plain and SDPA (causal and window)
 
 It takes no arguments: the traffic is fixed by the constants below.
 
@@ -56,6 +58,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -112,8 +115,9 @@ FLASH_TOLERANCE = "ref.flash_attention_tolerance (flip-aware f32 bound)"
 FLASH_SCALE_FAULT = 1.02
 FLASH_LIBRARY = ("yardstick only, never called by the port: "
                  "torch.nn.functional.scaled_dot_product_attention on the "
-                 "bf16 q/k/v as (1, BH, S, hd), is_causal=True; causal cases "
-                 "only")
+                 "bf16 q/k/v as (1, BH, S, hd), is_causal=True in the causal "
+                 "cases and a boolean attn_mask of the valid pairs in the "
+                 "window case; none for the softcap and invalid-key cases")
 
 
 def emit(phase: str, **fields) -> None:
@@ -675,8 +679,13 @@ def flash_phase(timer, gen, device, kernels):
                                                    block_k=block_k, **kw))
         t_p = timer(plain, iters=5, warmup=1)
         q4, k4, v4 = q[None], k[None], v[None]        # (1, BH, S, hd)
-        t_l = (timer(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True)) if name == "causal" else None)
+        t_l = None
+        if name == "causal":
+            t_l = timer(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True))
+        elif name == "window_512":       # the same positions in every head
+            t_l = timer(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=valid[0]))
         err = float(diff.max())
         flash_err = max(flash_err, err)
         emit("flash", case=name, BH=bh, S=s, hd=hd, block_k=block_k,
@@ -715,7 +724,15 @@ def main() -> int:
     from repro_torch.kernels.m2xfp_quantize import KERNEL as QUANT
     from repro_torch.kernels.mxfp4_matmul import KERNEL as MXFP4
 
-    t_start = time.perf_counter()
+    t_start = t_lap = time.perf_counter()
+    seconds = {}
+
+    def lap(phase):
+        nonlocal t_lap
+        now = time.perf_counter()
+        seconds[phase] = now - t_lap
+        t_lap = now
+
     device = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -724,14 +741,24 @@ def main() -> int:
     regs = {name: [ln.strip() for ln in rep.splitlines()
                    if "registers" in ln or "spill" in ln]
             for name, rep in built["ptxas"].items()}
+    # bytes spilled (stores + loads) by each flash instance; empty when the
+    # library was already built
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+        built["ptxas"].get(FLASH.name, ""))]
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, allow_tf32=False,
-         build_s=built["seconds"], ptxas=regs)
+         build_s=built["seconds"], ptxas=regs,
+         flash_spill_bytes=sum(spills) if spills else None)
+    if any(spills):
+        raise AssertionError(f"flash attention spills registers: {spills}")
+    lap("device")
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(SEED)
     summary = kernel_phase(timer, gen, device)
+    lap("kernels")
 
     kernels = (M2XFP, MXFP4, QUANT, QKERNEL, FLASH)
     eng, summary["m2xfp_matmul"]["launches"] = serve_phase(
@@ -740,23 +767,29 @@ def main() -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    lap("serve_m2xfp")
     eng, summary["mxfp4_matmul"]["launches"] = serve_phase(
         "mxfp4", device, MXFP4, kernels)
     decode_breakdown(eng, device)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    lap("serve_mxfp4")
 
     bitmath_phase(gen, device)
+    lap("bitmath")
     summary.update(w4a4_phase(timer, gen, device, kernels))
     gc.collect()
     torch.cuda.empty_cache()
+    lap("w4a4")
     summary["flash_attention"] = flash_phase(timer, gen, device, kernels)
+    lap("flash")
 
     for name, s in summary.items():
         if s["launches"] < 1:
             raise AssertionError(f"{name} was never launched by its path")
-    emit("total", seconds=time.perf_counter() - t_start)
+    emit("total", seconds=time.perf_counter() - t_start,
+         phase_seconds=seconds)
     print(json.dumps({"kernels": list(summary.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -191,3 +191,126 @@ def test_flash_entry_dispatches_cpu_to_plain():
     assert torch.equal(got, p_ref.flash_attention_ref(q, k, v, pos, pos,
                                                       window=5, block_k=8))
     assert KERNEL.launches == before == 0
+
+
+# The CUDA kernel's order of operations (csrc/flash_attention.cu): 64 query
+# rows per block, 64-key sub-tiles inside each block_k block (the last one
+# short), the q.k dot summed over 16-wide steps of the head dim, two passes
+# per block (the row max, then p, l and pv), pv summed sub-tile by sub-tile
+# and added to acc * corr at the block's end, and the sub-tiles that cannot
+# hold a valid pair of the block's rows skipped.
+ROWS, SUB, KSTEP = 64, 64, 16
+
+
+def _may_hold_valid(pq, pk, window):
+    """The kernel's skip test: the ranges of the valid query and key
+    positions of a (row block, sub-tile) admit a valid pair."""
+    pq, pk = pq[pq >= 0], pk[pk >= 0]
+    if pq.numel() == 0 or pk.numel() == 0:
+        return False
+    return bool(pk.min() <= pq.max() and pq.min() - pk.max() < window)
+
+
+def _kernel_order(q, k, v, pos_q, pos_k, *, softcap=None, window=1 << 30,
+                  block_k=BK, skip=True):
+    """Plain f32 emulation (round to nearest) of the kernel's order."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    q, k, v, pos_q, pos_k = (torch.from_numpy(t) for t in (q, k, v, pos_q,
+                                                           pos_k))
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    qb, kb, vb = (t.to(bf16).to(f32) for t in (q, k, v))
+    scale = torch.tensor(hd ** -0.5, dtype=f32)
+    cap = None if softcap is None else torch.tensor(softcap, dtype=f32)
+    out = torch.zeros((bh, sq, hd), dtype=f32)
+    for b in range(bh):
+        for r0 in range(0, sq, ROWS):
+            qt, pq = qb[b, r0:r0 + ROWS], pos_q[b, r0:r0 + ROWS]
+            rows = qt.shape[0]
+            m = torch.full((rows,), p_ref.NEG_INF, dtype=f32)
+            l = torch.zeros(rows, dtype=f32)
+            acc = torch.zeros((rows, hd), dtype=f32)
+            for j0 in range(0, skv, block_k):
+                end = min(j0 + block_k, skv)
+                subs = [(a, min(a + SUB, end)) for a in range(j0, end, SUB)]
+                if skip:
+                    subs = [(a, e) for a, e in subs
+                            if _may_hold_valid(pq, pos_k[b, a:e], window)]
+
+                def scores(a, e):
+                    s = torch.zeros((rows, e - a), dtype=f32)
+                    for d in range(0, hd, KSTEP):
+                        s = s + qt[:, d:d + KSTEP] @ kb[b, a:e, d:d + KSTEP].T
+                    s = s * scale
+                    if cap is not None:
+                        s = cap * torch.tanh(s / cap)
+                    pk = pos_k[b, None, a:e]
+                    valid = ((pk >= 0) & (pq[:, None] >= pk)
+                             & (pq[:, None] - pk < window))
+                    return torch.where(valid, s, p_ref.NEG_INF), valid
+
+                mx = torch.full((rows,), p_ref.NEG_INF, dtype=f32)
+                for a, e in subs:                          # pass A
+                    mx = torch.maximum(mx, scores(a, e)[0].amax(dim=-1))
+                m_new = torch.maximum(m, mx)
+                lsum = torch.zeros(rows, dtype=f32)
+                pv = torch.zeros((rows, hd), dtype=f32)
+                for a, e in subs:                          # pass B
+                    s, valid = scores(a, e)
+                    p = torch.where(valid, torch.exp(s - m_new[:, None]), 0.0)
+                    lsum = lsum + p.sum(dim=-1)
+                    pv = pv + p.to(bf16).to(f32) @ vb[b, a:e]
+                corr = torch.exp(m - m_new)
+                l = l * corr + lsum
+                acc = acc * corr[:, None] + pv
+                m = m_new
+            out[b, r0:r0 + rows] = acc / l.clamp_min(1e-30)[:, None]
+    return out.numpy()
+
+
+def _case_inputs(seed, invalid, sq=S, skv=S):
+    q, k, v = _qkv(seed, sq=sq, skv=skv)
+    pos_q = _positions(BH, sq) + (skv - sq)
+    pos_k = _positions(BH, skv)
+    if invalid:
+        pos_k[:, -invalid:] = -1
+    return q, k, v, pos_q, pos_k
+
+
+@pytest.mark.parametrize("block_k", [64, 100, 160])
+@pytest.mark.parametrize("window,softcap,invalid", CASES)
+def test_flash_kernel_order_within_tolerance(window, softcap, invalid,
+                                             block_k):
+    """The kernel's order of operations lies inside the bound, also where
+    block_k is not a multiple of the 64-key sub-tile (a short last
+    sub-tile in every block)."""
+    q, k, v, pos_q, pos_k = _case_inputs(19, invalid, sq=160, skv=S + 72)
+    if softcap is not None:
+        q = q * 8                                  # scores reach the cap
+    kw = dict(softcap=softcap, window=window, block_k=block_k)
+    got = _kernel_order(q, k, v, pos_q, pos_k, **kw)
+    want = p_flash(*(torch.from_numpy(t) for t in (q, k, v, pos_q, pos_k)),
+                   **kw).numpy()
+    tol = _tolerance(q, k, v, pos_q, pos_k, **kw)
+    assert np.all(np.abs(got - want) <= tol)
+
+
+@pytest.mark.parametrize("window,softcap,invalid", CASES)
+def test_flash_masked_sub_tiles_change_nothing(window, softcap, invalid):
+    """Dropping the fully masked sub-tiles (the kernel's skip) or adding a
+    fully masked block of keys leaves the recurrence bit-identical."""
+    q, k, v, pos_q, pos_k = _case_inputs(23, invalid)
+    kw = dict(softcap=softcap, window=window, block_k=BK)
+    skipped = _kernel_order(q, k, v, pos_q, pos_k, **kw)
+    every = _kernel_order(q, k, v, pos_q, pos_k, skip=False, **kw)
+    assert np.array_equal(skipped, every)
+    pad = SUB
+    k2, v2 = (np.concatenate([t, t[:, :pad]], axis=1) for t in (k, v))
+    pos_k2 = np.concatenate([pos_k, np.full((BH, pad), -1, np.int32)], 1)
+    assert np.array_equal(_kernel_order(q, k2, v2, pos_q, pos_k2, **kw),
+                          skipped)
+    ref = p_flash(*(torch.from_numpy(t) for t in (q, k, v, pos_q, pos_k)),
+                  **kw)
+    ref2 = p_flash(*(torch.from_numpy(t) for t in (q, k2, v2, pos_q,
+                                                   pos_k2)), **kw)
+    assert torch.equal(ref, ref2)

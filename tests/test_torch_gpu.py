@@ -164,3 +164,43 @@ def test_cuda_flash_attention_vs_plain():
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_kernel(*(torch.zeros(1, 4, 300, device="cuda")
                                  for _ in range(3)), pos[:1, :4], pos[:1, :4])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_edges():
+    """The tensor-core kernel at its edges, within ref.flash_attention_
+    tolerance of its plain version and one launch per call: head dims 64,
+    72 and 100 (padded to 80 and 112 inside), 80, 128 and 256 (two column
+    blocks); Sq 1 and 300 against Skv 300; block_k 64, 100 (a short
+    sub-tile in every block), 512 and 1024; f32 and bf16 inputs (bf16 at
+    hd 100 takes the unaligned copy path); causal with invalid keys, and a
+    window of 20 keys, smaller than a 64-key sub-tile, with a softcap."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(5)
+    bh, skv = 2, 300
+    for hd in (64, 72, 80, 100, 128, 256):
+        base = [torch.randn(bh, s, hd, generator=gen, device="cuda")
+                for s in (skv, skv, skv)]
+        for sq in (1, 300):
+            pos_q = (torch.arange(sq, device="cuda", dtype=torch.int32)
+                     + (skv - sq)).expand(bh, sq).contiguous()
+            pos_k = torch.arange(skv, device="cuda", dtype=torch.int32).expand(
+                bh, skv).contiguous()
+            pos_k[:, -7:] = -1
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dtype) for t in base)
+                q = q[:, skv - sq:].contiguous()
+                for block_k in (64, 100, 512, 1024):
+                    for kw in (dict(), dict(window=20, softcap=5.0)):
+                        args = (q, k, v, pos_q, pos_k)
+                        before = FLASH_KERNEL.launches
+                        got = flash_attention_kernel(*args, block_k=block_k,
+                                                     **kw)
+                        assert FLASH_KERNEL.launches == before + 1
+                        want = ref.flash_attention_ref(*args, block_k=block_k,
+                                                       **kw)
+                        tol = ref.flash_attention_tolerance(
+                            *args, block_k=block_k, **kw)
+                        where = (hd, sq, dtype, block_k, kw)
+                        assert got.shape == (bh, sq, hd), where
+                        assert bool(((got - want).abs() <= tol).all()), where
