@@ -7,27 +7,38 @@ for sm_90a (into ``build/repro_torch/``), then runs these phases, each
 printing JSON lines:
 
   1. device   -- card, power limit, torch/CUDA versions, kernel build time,
-                 ptxas registers and spills (the flash kernel must spill
-                 nothing)
+                 ptxas registers and spills (flash attention and the two
+                 dequant-GEMMs must spill nothing)
   2. kernels  -- each dequant-GEMM at the full-width paper-llama2-7b
                  projection shapes and M in {1, 8, 64, 129}: held against its
                  plain version within the expected size of f32 rounding
                  (see TOLERANCE), shown to reject a planted one-group fault
-                 of the packed weight, rows bit-identical across M, timed
-                 with the 50 MB L2 flushed between launches, beside its
-                 bound, the plain version and a library yardstick
+                 of the packed weight, rows bit-identical across M, the same
+                 bits from two calls, timed with the 50 MB L2 flushed between
+                 launches, beside its bound (and the share of it reached),
+                 the plain version and a library yardstick; each line names
+                 the split count (a function of K and N) and the workspace
+                 (none: the splits are summed inside a thread-block cluster);
+                 then one m2xfp launch per shape at M = 8 built with its
+                 per-block clock readings (repro_torch.kernels.gemm_timeline:
+                 first-data latency, wait, compute and tail cycles)
   3. serve    -- continuous-batching serving of full-width, full-depth
                  paper-llama2-7b (random weights from SEED, packed m2xfp)
                  through the port's ServeEngine; every projection must go
                  through the m2xfp kernel; then one all-slots decode step
-                 split into host wall time and device time by kernel
+                 split into host wall time and device time by kernel, after
+                 a check that every kernel in the GEMM's library carries
+                 "dequant_gemm" in its name, so the split counts them all
   4. serve    -- the same with the mxfp4 codec
   5. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
                  the quantize engine on a 4097-point sweep of [-8, 8] (every
                  FP4 and FP6 code, midpoint and saturation) and the W4A4 GEMM
                  against an identity weight on random X streams (every
                  top-1 code, tie and meta field), both equal to their plain
-                 versions
+                 versions; and the two serve GEMMs' in-register weight decode
+                 (identity x on random streams: every code, meta field and
+                 scale byte 0-250, subnormal weights included) equal to the
+                 plain decoders
   6. w4a4     -- the W4A4 datapath (quantize engine, then the fully packed
                  GEMM) through ``repro_torch.kernels`` for the seven
                  projections of one full-width paper-llama2-7b layer at M in
@@ -36,7 +47,13 @@ printing JSON lines:
                  within twice that of the serve GEMM on the same
                  fake-quantized activations, rows bit-identical across M, a
                  planted activation-meta fault flagged at every shape, and
-                 times beside bound, plain and library
+                 times beside bound, plain and library. The two plain
+                 versions compute the same exact function, so the 2 x
+                 TOLERANCE check holds by the triangle inequality. The
+                 emitted bit_equal_to_serve_gemm is never asserted: the
+                 serve GEMM sums on the tensor cores in split-K order, so it
+                 may differ in the last bits (on this data it reads true,
+                 since every sum of the few-bit decoded products is exact)
   7. flash    -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
                  layer's prefill): causal at S = 512 and 2048, S = 2048 with
                  a 512 window, with softcap 50 on q scaled by 8 (so scores
@@ -177,7 +194,7 @@ def plant_fault(name: str, wp: dict) -> dict:
 
 
 def kernel_phase(timer, gen, device):
-    from repro_torch.kernels import layout, ref
+    from repro_torch.kernels import _build, layout, ref
     from repro_torch.kernels.m2xfp_matmul import KERNEL as M2XFP
     from repro_torch.kernels.mxfp4_matmul import KERNEL as MXFP4
     specs = [
@@ -218,6 +235,9 @@ def kernel_phase(timer, gen, device):
                 err = float(diff.max())
                 max_err = max(max_err, err)
                 outs[m] = got
+                if not torch.equal(kern(xm, wp), got):
+                    raise AssertionError(f"{name} K={k} N={n} M={m}: two "
+                                         f"calls gave different bits")
                 fault = {}
                 if m == 8:
                     bad = plant_fault(name, wp)
@@ -238,11 +258,12 @@ def kernel_phase(timer, gen, device):
                 b_ms, b_by, nbytes = bound(m, k, n, wbytes)
                 emit("kernels", kernel=name, K=k, N=n, M=m,
                      tolerance=TOLERANCE, max_ratio_to_tolerance=ratio,
-                     max_abs_err=err, **fault,
+                     max_abs_err=err, **fault, deterministic=True,
+                     split_k=_build.split_k(k, n), workspace_bytes=0,
                      kernel_ms=t_k, plain_ms=t_p, library_ms=t_l,
                      library=LIBRARY,
                      bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                     launches=kern.launches)
+                     share_of_bound=b_ms / t_k, launches=kern.launches)
                 if m == 8:
                     bound_by.add(b_by)
                     reps = LAYER_GEMMS[(k, n)]
@@ -334,15 +355,36 @@ def serve_phase(codec: str, device, kern, kernels):
     return eng, launches
 
 
-def decode_breakdown(eng, device, steps: int = 3):
+def gemm_kernel_names(kern) -> list:
+    """Every device kernel in the library of the dequant-GEMM ``kern`` (the
+    "Function" entries of ``cuobjdump -sass``), so every kernel any of its
+    calls can launch. Raises unless each carries "dequant_gemm", the filter
+    by which decode_breakdown counts the GEMM's device time."""
+    from repro_torch.kernels import _build
+    lib = _build.BUILD_DIR / f"lib{kern.name}.so"
+    sass = subprocess.run(
+        [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        check=True, capture_output=True, text=True).stdout
+    names = sorted(set(re.findall(r"Function : (\S+)", sass)))
+    escaped = [k for k in names if "dequant_gemm" not in k]
+    if not names or escaped:
+        raise AssertionError(f"{lib.name} holds kernels {names}; not counted "
+                             f"as the packed GEMM: {escaped}")
+    return names
+
+
+def decode_breakdown(eng, device, kern, steps: int = 3):
     """Wall time of an all-slots decode step (host clock, synchronized, no
     profiler), then its device time by kernel from torch.profiler over as
     many more steps. The idle share is ``1 - device / wall`` unclipped; a
     device time above either run's wall means events were counted twice,
-    and raises."""
+    and raises. The packed GEMM's time is that of every kernel whose name
+    carries "dequant_gemm"; gemm_kernel_names checks first that ``kern``'s
+    library holds no other."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.model import decode_step
     b = eng.n_slots
+    names = gemm_kernel_names(kern)
     tokens = torch.zeros((b, 1), dtype=torch.long, device=device)
     index = torch.full((b,), 128, dtype=torch.long, device=device)
 
@@ -379,16 +421,20 @@ def decode_breakdown(eng, device, steps: int = 3):
          wall_ms=wall * 1e3, profiled_wall_ms=wall_profiled * 1e3,
          device_ms=total, packed_gemm_ms=gemm,
          other_device_ms=total - gemm, device_idle_share=idle,
+         gemm_kernel_names=names,
          top_kernels_ms={k[:80]: v for k, v in top})
 
 
 def bitmath_phase(gen, device):
     """The bit helpers of csrc/mx_bits.cuh on every code, through the two
-    W4A4 kernels on constructed inputs (their launches are comparisons and
-    are not counted). Raises unless both equal their plain versions."""
+    W4A4 kernels on constructed inputs, and the serve GEMMs' weight decode
+    (their launches are comparisons and are not counted). Raises unless each
+    equals its plain version."""
     from repro_torch.kernels import layout, ref
+    from repro_torch.kernels.m2xfp_matmul import KERNEL as M2XFP
     from repro_torch.kernels.m2xfp_matmul import QKERNEL
     from repro_torch.kernels.m2xfp_quantize import KERNEL as QUANT
+    from repro_torch.kernels.mxfp4_matmul import KERNEL as MXFP4
     # Encode: each sweep value leads subgroup 0 of a group anchored at 4.0
     # (scale 1 while |v| < 8), so it meets RTNE FP4 and, as the top-1, RTNE
     # FP6 and the bias clamp at every code and midpoint of both grids.
@@ -420,12 +466,36 @@ def bitmath_phase(gen, device):
     if not torch.equal(dec, ref.decode_x_elem_em_ref(xp)):
         raise AssertionError("bitmath: the W4A4 GEMM's X decode differs from "
                              "the plain Top-1 Decode Unit")
+    # Serve GEMMs: x = I (64 rows) times random W streams gives the decoded
+    # weight, one exact product per output: every code, meta field and scale
+    # byte 0-250 (bytes 0-3 give subnormal weights; above 250 some decode
+    # past f32's range).
+    w_streams = {"codes": torch.randint(0, 256, (k // 2, m), generator=gen,
+                                        device=device, dtype=torch.uint8),
+                 "scales": torch.randint(0, 251, (k // 32, m), generator=gen,
+                                         device=device, dtype=torch.uint8),
+                 "meta": torch.randint(0, 256, (k // 32, m), generator=gen,
+                                       device=device, dtype=torch.uint8)}
+    eye16 = eye.to(torch.bfloat16)
+    subnormal = 0
+    for kern, dec, streams in (
+            (M2XFP, ref.decode_w_sgem_ref, ("codes", "scales", "meta")),
+            (MXFP4, ref.decode_w_mxfp4_ref, ("codes", "scales"))):
+        wq = {s: w_streams[s] for s in streams}
+        want = dec(wq)
+        if not torch.equal(kern(eye16, wq), want):
+            raise AssertionError(f"bitmath: {kern.name}'s weight decode "
+                                 f"differs from the plain decoder")
+        subnormal += int(((want != 0) & (want.abs() < 2.0 ** -126)).sum())
     torch.cuda.synchronize()
     emit("bitmath", encode_sweep_points=sweep.numel(),
          encode_streams_equal=True, decode_columns=m,
          decode_distinct_code_bytes=int(xp["codes"].unique().numel()),
          decode_distinct_meta_bytes=int(xp["meta"].unique().numel()),
-         decode_equal=True)
+         decode_equal=True, serve_gemm_decode_equal=True,
+         serve_gemm_scale_bytes=[int(w_streams["scales"].min()),
+                                 int(w_streams["scales"].max())],
+         serve_gemm_subnormal_weights=subnormal)
 
 
 def _w4a4_bound(m: int, k: int, n: int):
@@ -717,7 +787,7 @@ def main() -> int:
         sys.exit("chip_smoke: no CUDA device; this script measures the port "
                  "on an H100 and has nothing to report without one")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, gemm_timeline
     from repro_torch.kernels.flash_attention import KERNEL as FLASH
     from repro_torch.kernels.m2xfp_matmul import KERNEL as M2XFP
     from repro_torch.kernels.m2xfp_matmul import QKERNEL
@@ -741,36 +811,43 @@ def main() -> int:
     regs = {name: [ln.strip() for ln in rep.splitlines()
                    if "registers" in ln or "spill" in ln]
             for name, rep in built["ptxas"].items()}
-    # bytes spilled (stores + loads) by each flash instance; empty when the
-    # library was already built
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-        built["ptxas"].get(FLASH.name, ""))]
+    # bytes spilled (stores + loads) by each kernel instance of a library;
+    # None when the library was already built
+    def spill_bytes(name):
+        found = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            built["ptxas"].get(name, ""))]
+        return sum(found) if found else None
+
+    spills = {k.name: spill_bytes(k.name) for k in (FLASH, M2XFP, MXFP4)}
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, allow_tf32=False,
          build_s=built["seconds"], ptxas=regs,
-         flash_spill_bytes=sum(spills) if spills else None)
-    if any(spills):
-        raise AssertionError(f"flash attention spills registers: {spills}")
+         flash_spill_bytes=spills[FLASH.name],
+         gemm_spill_bytes={k: spills[k] for k in (M2XFP.name, MXFP4.name)})
+    if any(spills.values()):
+        raise AssertionError(f"kernels spill registers: {spills}")
     lap("device")
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(SEED)
     summary = kernel_phase(timer, gen, device)
+    for line in gemm_timeline.run(8, SEED):
+        emit("gemm_timeline", **line)
     lap("kernels")
 
     kernels = (M2XFP, MXFP4, QUANT, QKERNEL, FLASH)
     eng, summary["m2xfp_matmul"]["launches"] = serve_phase(
         "m2xfp", device, M2XFP, kernels)
-    decode_breakdown(eng, device)
+    decode_breakdown(eng, device, M2XFP)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     lap("serve_m2xfp")
     eng, summary["mxfp4_matmul"]["launches"] = serve_phase(
         "mxfp4", device, MXFP4, kernels)
-    decode_breakdown(eng, device)
+    decode_breakdown(eng, device, MXFP4)
     del eng
     gc.collect()
     torch.cuda.empty_cache()

@@ -13,7 +13,8 @@ PyTorch's current stream, raises if the call reports a CUDA error, and
 counts its launches (``launches``) so a run can show that its main path
 went through the kernel. Each kernel object checks device, dtype, shape
 and contiguity of its own operands and allocates its outputs;
-:class:`CudaKernel` is the one of the two dequant-GEMMs.
+:class:`CudaKernel` is the one of the two dequant-GEMMs, and
+:func:`split_k` plans its split-K launch.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "KERNEL_NAMES", "nvcc", "build", "Binding",
-           "CudaKernel", "check_cuda", "check_k", "check_stream"]
+           "CudaKernel", "check_cuda", "check_k", "check_stream", "split_k",
+           "split_bounds"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -167,16 +169,42 @@ def check_k(name: str, k: int) -> None:
                          f"quantization group")
 
 
+# Split-K plan of the dequant-GEMMs (csrc/mx_dequant_gemm.cuh): a block owns
+# BLOCK_N output columns (kBlockN there) and one of S contiguous ranges of K
+# groups; the S blocks of a column tile form one thread-block cluster, which
+# sums their partials in split order, so S is at most a portable cluster's 8.
+BLOCK_N = 128
+TARGET_BLOCKS = 2 * 132     # two blocks on each of an H100's 132 SMs
+MAX_SPLITS = 8
+
+
+def split_k(k: int, n: int) -> int:
+    """Number of K splits of the dequant-GEMM for K x N: enough that the
+    column tiles times the splits reach TARGET_BLOCKS, at most one per
+    32-group and at most MAX_SPLITS. It depends on (K, N) only, never on M,
+    so every row of x is summed in the same order at any M."""
+    groups = k // 32
+    tiles = max(1, -(-n // BLOCK_N))
+    return max(1, min(-(-TARGET_BLOCKS // tiles), groups, MAX_SPLITS))
+
+
+def split_bounds(groups: int, s: int) -> list:
+    """Group boundaries of the ``s`` splits, as the kernel computes them:
+    split i covers groups ``[b[i], b[i+1])``."""
+    return [i * groups // s for i in range(s + 1)]
+
+
 class CudaKernel(Binding):
     """One of the two dequant-GEMMs: ``int <name>(x, <streams>..., out, M,
-    K, N, stream)``; ``streams`` names the packed u8 streams it reads, in
-    order (codes: K/2 rows, scales and meta: K/32 rows)."""
+    K, N, S, stream)``; ``streams`` names the packed u8 streams it reads, in
+    order (codes: K/2 rows, scales and meta: K/32 rows), and ``S`` is
+    :func:`split_k`."""
 
     ROW_DIV = {"codes": 2, "scales": 32, "meta": 32}
 
     def __init__(self, name: str, streams: tuple):
         super().__init__(name, [ctypes.c_void_p] * (2 + len(streams))
-                         + [ctypes.c_int] * 3)
+                         + [ctypes.c_int] * 4)
         self.streams = streams
 
     def __call__(self, x: torch.Tensor, w: dict) -> torch.Tensor:
@@ -193,5 +221,6 @@ class CudaKernel(Binding):
             return out
         self.launch(x.device, x.data_ptr(),
                     *(w[s].data_ptr() for s in self.streams),
-                    out.data_ptr(), m, k, n, where=f"M={m} K={k} N={n}")
+                    out.data_ptr(), m, k, n, split_k(k, n),
+                    where=f"M={m} K={k} N={n}")
         return out

@@ -31,26 +31,39 @@ def _need_cuda():
         pytest.skip("needs a CUDA device")
 
 
+# (K, N) at the edges of the tensor-core design: one group and one 8-column
+# tile; a group beyond 4096 (the last split one group longer) and N off the
+# 128-column tile and the 16-byte copies; the down projection's K; a full
+# projection shape (4 splits, aligned copies).
+GEMM_EDGES = [(32, 8), (4096 + 32, 200), (11008, 200), (4096, 11008)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("k,n", GEMM_EDGES)
 @pytest.mark.parametrize("fmt", sorted(CODECS))
-def test_cuda_kernel_vs_plain(fmt):
+def test_cuda_kernel_vs_plain(fmt, k, n):
     """The kernel against its plain version within sqrt(K)*2^-24*(|x| @ |W|),
-    the expected size of its K f32 roundings (chip_smoke.py's tolerance),
-    rows independent of M, one launch counted per call, and a refused
-    dtype."""
+    the expected size of its K f32 roundings (chip_smoke.py's tolerance), at
+    M in {1, 8, 17, 64, 65, 129} (one 8-row tile, a ragged one, a full 64-row
+    tile, one row beyond it); rows bit-identical to those of M = 129; two
+    calls give the same bits; one launch counted per call; a refused dtype
+    and K."""
     _need_cuda()
     pack, gemm, plain, decode, kern = CODECS[fmt]
     gen = torch.Generator("cuda").manual_seed(1)
-    k, n = 11008, 200                                  # N off the 64-grid
     wp = pack(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
     x = torch.randn(129, k, generator=gen, device="cuda").to(torch.bfloat16)
-    before = kern.launches
-    got = gemm(x, wp)
-    assert kern.launches == before + 1
-    bound = k ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(x.abs(), decode(wp).abs())
-    assert bool(((got - plain(x, wp)).abs() <= bound).all())
-    for m in (1, 8, 64):
-        assert torch.equal(gemm(x[:m].contiguous(), wp), got[:m]), m
+    wabs = decode(wp).abs()
+    full = gemm(x, wp)
+    for m in (1, 8, 17, 64, 65, 129):
+        xm = x[:m].contiguous()
+        before = kern.launches
+        got = gemm(xm, wp)
+        assert kern.launches == before + 1
+        bound = k ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(xm.abs(), wabs)
+        assert bool(((got - plain(xm, wp)).abs() <= bound).all()), m
+        assert torch.equal(got, full[:m]), m
+        assert torch.equal(gemm(xm, wp), got), m          # deterministic
     with pytest.raises(ValueError, match="bfloat16"):
         gemm(x.float(), wp)
     with pytest.raises(ValueError, match="multiple of the 32"):
