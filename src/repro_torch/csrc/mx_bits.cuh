@@ -70,17 +70,4 @@ __device__ __forceinline__ float rtne_fp4(float ax) { return rtne_mag<1>(ax, 6.0
 // RTNE magnitude onto the E2M3 grid (saturating at 7.5).
 __device__ __forceinline__ float rtne_fp6(float ax) { return rtne_mag<3>(ax, 7.5f); }
 
-// Sg-EM scale of subgroup j (0..3) of a group: (1 + field_j / 4) * s, with
-// field_j the 2-bit field j of the group's meta byte and s = 2^(scale - 127).
-// Exact in f32.
-__device__ __forceinline__ float sgem_sub_scale(int meta, int j, float s) {
-  return (1.0f + 0.25f * (float)((meta >> (2 * j)) & 3)) * s;
-}
-
-// Sign-magnitude FP4 code times its (exact, power-of-two-ish) group scale.
-__device__ __forceinline__ float decode(int code, float scale) {
-  const float w = fp4_mag(code & 7) * scale;
-  return (code & 8) ? -w : w;
-}
-
 }  // namespace mx

@@ -1,5 +1,6 @@
-// Shared body of the two packed-weight GEMMs (m2xfp_matmul.cu, mxfp4_matmul.cu)
-// on Hopper's tensor cores.
+// Shared body of the packed-weight GEMMs on Hopper's tensor cores: the two
+// serve dequant-GEMMs (m2xfp_matmul.cu, mxfp4_matmul.cu) and the fully packed
+// W4A4 GEMM (m2xfp_qmatmul.cu), which differ only in the source of x.
 //
 //   out[m, n] = sum_k bf16(x[m, k]) * Wdec[k, n]      (f32 accumulation)
 //
@@ -61,6 +62,19 @@
 // multiplies keep subnormals). chip_smoke.py's bitmath phase passes such
 // weights through the kernel one product at a time; sums that mix them with
 // larger terms are outside the tested domain (ROADMAP C).
+//   Packed x (XSrc::kElemEm, the W4A4 GEMM): x arrives as Elem-EM streams in
+// the same wire format with M in place of N (codes (K/2, M), scales and meta
+// (K/32, M)). Each stage's x byte rows (64 code rows, 4 scale and 4 meta rows
+// of the block's <= 64 columns of M) ride in the ring beside W's, by cp.async
+// of 16 or 8 bytes where M and the pointers allow, else through registers.
+// After the stage's wait the block runs the Top-1 Decode Unit, one (row,
+// subgroup of 8) per thread and step: the first element holding the largest
+// FP4 magnitude code cmax takes fp6(max((cmax << 2) | meta, 1) - 1), every
+// other its FP4 value, all times 2^(scale - 127). A decoded value has at most
+// 4 significant bits and f32's exponent range, so it is exact in bf16; it is
+// written into one bf16 x buffer in the layout ldmatrix reads, and the mma
+// loop runs unchanged. So out[m, n] is the serve GEMM's sum on the decoded x,
+// bit for bit, at every shape.
 //   What bounds it at M = 8 (a block timeline on the card, PERF.md): the
 // first stage's data arrives after about 3 us, when the whole card has asked
 // for most of the weight at once; then the decode's issue rate (about 70
@@ -95,11 +109,19 @@ constexpr int kXPitch = kStageGroups * kGroup + 8; // bf16 per staged x row
 constexpr int kCodeBytes = kStageGroups * 16 * kCodePitch;
 constexpr int kRowBytes = kStageGroups * kBlockN;  // staged scale (or meta) rows
 constexpr int kFixedBytes = kCodeBytes + 2 * kRowBytes;
+constexpr int kXRowPitch = kTileM;                 // bytes per staged packed-x row
+constexpr int kXCodeBytes = kStageGroups * 16 * kXRowPitch;
+constexpr int kXBytes = kXCodeBytes + 2 * kStageGroups * kXRowPitch;
 constexpr uint32_t kTwo126 = 0x7E807E80u;          // bf16x2 (2^126, 2^126)
 constexpr uint32_t kNegZero = 0x80008000u;         // bf16x2 (-0, -0)
 
 static_assert(kStages * kXPitch * 2 >= kBlockN * 4,
               "the ring must hold a block's f32 partial tile");
+static_assert(kStages * (kFixedBytes + kXBytes) >= kTileM * kBlockN * 4,
+              "the packed-x ring must hold a block's f32 partial tile");
+
+// Source of the x operand: bf16 rows (M, K), or Elem-EM streams (K-major).
+enum class XSrc { kDense, kElemEm };
 
 #ifdef MX_GEMM_TIMELINE
 // Per-block clock readings for kernels/gemm_timeline.py (ncu and nsys do not
@@ -116,7 +138,7 @@ __device__ __forceinline__ unsigned long long global_ns() {
 #endif
 
 struct Args {
-  const __nv_bfloat16* x;  // (M, K)
+  const __nv_bfloat16* x;  // (M, K), XSrc::kDense
   const uint8_t* codes;
   const uint8_t* scales;
   const uint8_t* meta;
@@ -124,6 +146,12 @@ struct Args {
   int M, K, N, S;
   int rows_x;              // staged x rows: min(64, M rounded up to 8)
   bool aligned;            // N % 16 == 0 and every pointer 16-byte aligned
+  // XSrc::kElemEm (after the dense fields, which keep their offsets)
+  const uint8_t* xcodes;   // (K/2, M)
+  const uint8_t* xscales;  // (K/32, M)
+  const uint8_t* xmeta;    // (K/32, M)
+  int xvec;                // bytes per cp.async of its rows (16 or 8), or 0:
+                           // copied through registers
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -137,6 +165,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -227,8 +260,26 @@ __device__ __forceinline__ void copy16(uint8_t* dst, const uint8_t* src, const v
   }
 }
 
-// Stage of ng groups from group g0: code rows, scale rows, meta rows, x rows.
-template <bool kMeta>
+// Bytes c.. of one packed-x row into shared dst: a cp.async of `vec` (16 or
+// 8) bytes, or 8 bytes through registers (vec 0); of them the first `avail`
+// exist, the rest are zero-filled.
+__device__ __forceinline__ void copy_x(uint8_t* dst, const uint8_t* src, const void* base,
+                                       int avail, int vec) {
+  if (vec == 16) {
+    avail = max(0, min(16, avail));
+    cp_async16(dst, avail > 0 ? (const void*)src : base, avail);
+  } else if (vec == 8) {
+    avail = max(0, min(8, avail));
+    cp_async8(dst, avail > 0 ? (const void*)src : base, avail);
+  } else {
+#pragma unroll
+    for (int b = 0; b < 8; ++b) dst[b] = b < avail ? src[b] : 0;
+  }
+}
+
+// Stage of ng groups from group g0: code rows, scale rows, meta rows, then x:
+// bf16 rows, or packed-x code, scale and meta rows.
+template <bool kMeta, XSrc kX>
 __device__ __forceinline__ void load_stage(uint8_t* st, const Args& a, int g0, int ng,
                                            int n0, int m0) {
   constexpr int kChunks = kBlockN / 16;  // 16-byte chunks per stream row
@@ -244,26 +295,92 @@ __device__ __forceinline__ void load_stage(uint8_t* st, const Args& a, int g0, i
     copy16(st + kCodeBytes + stream * kRowBytes + r * kBlockN + c,
            src + (size_t)(g0 + r) * a.N + n0 + c, src, a.N - n0 - c, a.aligned);
   }
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + kFixedBytes);
-  const int chunks = ng * kGroup / 8;  // 16-byte chunks per x row
-  for (int i = threadIdx.x; i < a.rows_x * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    const bool in = m0 + r < a.M;
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(
-        a.x + (size_t)(m0 + r) * a.K + (size_t)g0 * kGroup + c);
-    copy16(reinterpret_cast<uint8_t*>(xs + r * kXPitch + c), src, a.x, in ? 16 : 0,
-           a.aligned);
+  if constexpr (kX == XSrc::kDense) {
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + kFixedBytes);
+    const int chunks = ng * kGroup / 8;  // 16-byte chunks per x row
+    for (int i = threadIdx.x; i < a.rows_x * chunks; i += kThreads) {
+      const int r = i / chunks, c = (i - r * chunks) * 8;
+      const bool in = m0 + r < a.M;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(
+          a.x + (size_t)(m0 + r) * a.K + (size_t)g0 * kGroup + c);
+      copy16(reinterpret_cast<uint8_t*>(xs + r * kXPitch + c), src, a.x, in ? 16 : 0,
+             a.aligned);
+    }
+  } else {
+    // code rows g0*16 .. (g0+ng)*16, then ng scale rows, then ng meta rows,
+    // each the block's rows_x columns of M from m0
+    uint8_t* xb = st + kFixedBytes;
+    const int width = a.xvec == 16 ? 16 : 8;  // bytes per copy
+    const int per_row = a.rows_x / width;
+    for (int i = threadIdx.x; i < ng * 18 * per_row; i += kThreads) {
+      const int r = i / per_row, c = (i - r * per_row) * width;
+      const uint8_t* src;
+      uint8_t* dst;
+      if (r < ng * 16) {
+        src = a.xcodes + (size_t)(g0 * 16 + r) * a.M;
+        dst = xb + r * kXRowPitch;
+      } else {
+        const int stream = (r - ng * 16) / ng, j = r - ng * 16 - stream * ng;
+        src = (stream ? a.xmeta : a.xscales) + (size_t)(g0 + j) * a.M;
+        dst = xb + kXCodeBytes + (stream * kStageGroups + j) * kXRowPitch;
+      }
+      copy_x(dst + c, src + m0 + c, a.xcodes, a.M - m0 - c, a.xvec);
+    }
+  }
+}
+
+// The Top-1 Decode Unit on a staged stage of packed x (ng groups, rows rows
+// of M): one (row, group, subgroup of 8) per thread and step, written as 8
+// bf16 into xs (row pitch kXPitch, K along the row), which ldmatrix reads.
+__device__ __forceinline__ void decode_x(const uint8_t* xb, __nv_bfloat16* xs, int ng,
+                                         int rows) {
+  for (int i = threadIdx.x; i < rows * ng * 4; i += kThreads) {
+    const int m = i % rows, sg = i / rows, gg = sg >> 2, j = sg & 3;
+    // subgroup j of group gg: byte rows gg*16 + (j & 1)*8 + e, low nibble for j < 2
+    const uint8_t* cr = xb + (gg * 16 + (j & 1) * 8) * kXRowPitch + m;
+    const int shift = (j >> 1) * 4;
+    int c[kSubgroup];
+#pragma unroll
+    for (int e = 0; e < kSubgroup; ++e) c[e] = (cr[e * kXRowPitch] >> shift) & 0xF;
+    int cmax = c[0] & 7, first = 0;
+#pragma unroll
+    for (int e = 1; e < kSubgroup; ++e)
+      if ((c[e] & 7) > cmax) {
+        cmax = c[e] & 7;
+        first = e;
+      }
+    const int field = (xb[kXCodeBytes + (kStageGroups + gg) * kXRowPitch + m] >> (2 * j)) & 3;
+    const float v6 = fp6_mag(max((cmax << 2) | field, 1) - 1);
+    const float s = exp2i((int)xb[kXCodeBytes + gg * kXRowPitch + m] - 127);
+    uint32_t out[kSubgroup / 2];
+#pragma unroll
+    for (int e = 0; e < kSubgroup; e += 2) {
+      float v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ce = c[e + h];
+        const float mag = (e + h == first ? v6 : fp4_mag(ce & 7)) * s;
+        v[h] = (ce & 8) ? -mag : mag;
+      }
+      const __nv_bfloat162 p = __floats2bfloat162_rn(v[0], v[1]);  // exact
+      out[e / 2] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    *reinterpret_cast<uint4*>(xs + m * kXPitch + gg * kGroup + j * kSubgroup) =
+        make_uint4(out[0], out[1], out[2], out[3]);
   }
 }
 
 // The mma steps of the ng groups of a staged stage into acc (mtiles tiles of 8
-// rows); kFull: ng == kStageGroups, so the groups' decodes may interleave.
-template <bool kMeta, bool kFull>
-__device__ __forceinline__ void compute_stage(const uint8_t* st, int ng, int mtiles,
+// rows); kFull: ng == kStageGroups, so the groups' decodes may interleave. x
+// is the stage's bf16 rows (dense x) or the decoded buffer xdec (packed x).
+template <bool kMeta, XSrc kX, bool kFull>
+__device__ __forceinline__ void compute_stage(const uint8_t* st, const __nv_bfloat16* xdec,
+                                              int ng, int mtiles,
                                               float (&acc)[kColFrags][kTileM / 8][4]) {
   const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
   const int c0 = (threadIdx.x >> 5) * kWarpN + 2 * gid;  // column pair of fragment 0
-  const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st + kFixedBytes);
+  const __nv_bfloat16* xs =
+      kX == XSrc::kDense ? reinterpret_cast<const __nv_bfloat16*>(st + kFixedBytes) : xdec;
 #pragma unroll
   for (int gg = 0; gg < kStageGroups; ++gg) {
     if (!kFull && gg >= ng) break;
@@ -296,9 +413,16 @@ __device__ __forceinline__ void compute_stage(const uint8_t* st, int ng, int mti
   }
 }
 
+// Bytes of one ring stage: W's rows, then x's bf16 rows or packed-x rows.
+template <XSrc kX>
+__host__ __device__ __forceinline__ int stage_bytes(int rows_x) {
+  return kFixedBytes + (kX == XSrc::kDense ? rows_x * kXPitch * 2 : kXBytes);
+}
+
 // Grid (ceil(N/kBlockN), S, ceil(M/64)): column tile, split, row tile;
-// clusters of (1, S, 1).
-template <bool kMeta>
+// clusters of (1, S, 1). Shared memory: the ring of kStages stages, then,
+// for packed x, the one decoded bf16 x buffer.
+template <bool kMeta, XSrc kX>
 __global__ void __launch_bounds__(kThreads) dequant_gemm(const Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int n0 = blockIdx.x * kBlockN, s = blockIdx.y, m0 = blockIdx.z * kTileM;
@@ -307,7 +431,8 @@ __global__ void __launch_bounds__(kThreads) dequant_gemm(const Args a) {
   const int g_hi = (int)((long long)(s + 1) * groups / a.S);
   const int nst = (g_hi - g_lo + kStageGroups - 1) / kStageGroups;
   const int mtiles = (min(kTileM, a.M - m0) + 7) / 8;
-  const int stage_bytes = kFixedBytes + a.rows_x * kXPitch * 2;
+  const int st_bytes = stage_bytes<kX>(a.rows_x);
+  __nv_bfloat16* const xdec = reinterpret_cast<__nv_bfloat16*>(smem + kStages * st_bytes);
   MX_TL(const unsigned long long t_start = global_ns(); const long long c_start = clock64();
         long long c_data = 0, c_wait = 0, c_compute = 0, c_mark = 0;)
 
@@ -323,7 +448,8 @@ __global__ void __launch_bounds__(kThreads) dequant_gemm(const Args a) {
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < nst) {
       const int g0 = g_lo + i * kStageGroups;
-      load_stage<kMeta>(smem + i * stage_bytes, a, g0, min(kStageGroups, g_hi - g0), n0, m0);
+      load_stage<kMeta, kX>(smem + i * st_bytes, a, g0, min(kStageGroups, g_hi - g0), n0,
+                            m0);
     }
     cp_async_commit();
   }
@@ -334,18 +460,22 @@ __global__ void __launch_bounds__(kThreads) dequant_gemm(const Args a) {
     const int nx = it + kStages - 1;
     if (nx < nst) {
       const int g0 = g_lo + nx * kStageGroups;
-      load_stage<kMeta>(smem + (nx % kStages) * stage_bytes, a, g0,
-                        min(kStageGroups, g_hi - g0), n0, m0);
+      load_stage<kMeta, kX>(smem + (nx % kStages) * st_bytes, a, g0,
+                            min(kStageGroups, g_hi - g0), n0, m0);
     }
     cp_async_commit();
     MX_TL(if (it == 0) c_data = clock64() - c_start; c_wait += clock64() - c_mark;
           c_mark = clock64();)
-    const uint8_t* st = smem + (it % kStages) * stage_bytes;
+    const uint8_t* st = smem + (it % kStages) * st_bytes;
     const int ng = min(kStageGroups, g_hi - (g_lo + it * kStageGroups));
+    if constexpr (kX == XSrc::kElemEm) {
+      decode_x(st + kFixedBytes, xdec, ng, mtiles * 8);
+      __syncthreads();  // the stage's x is decoded (it is consumed before the next)
+    }
     if (ng == kStageGroups)
-      compute_stage<kMeta, true>(st, ng, mtiles, acc);
+      compute_stage<kMeta, kX, true>(st, xdec, ng, mtiles, acc);
     else
-      compute_stage<kMeta, false>(st, ng, mtiles, acc);
+      compute_stage<kMeta, kX, false>(st, xdec, ng, mtiles, acc);
     MX_TL(c_compute += clock64() - c_mark;)
   }
 
@@ -399,19 +529,48 @@ __global__ void __launch_bounds__(kThreads) dequant_gemm(const Args a) {
   })
 }
 
-// out (M, N) = x (M, K) @ W, its K groups cut into S <= 8 splits: one launch
-// of ceil(N/kBlockN) x S x ceil(M/64) blocks in clusters of (1, S, 1).
+// Dynamic shared memory of a block staging rows_x rows of x.
+template <XSrc kX>
+inline int smem_bytes(int rows_x) {
+  return kStages * stage_bytes<kX>(rows_x) + (kX == XSrc::kDense ? 0 : rows_x * kXPitch * 2);
+}
+
+// One launch of ceil(N/kBlockN) x S x ceil(M/64) blocks in clusters of
+// (1, S, 1) on the operands of `a` (its pointers, M, K, N, S and, for packed
+// x, xvec set; the rest is filled here).
+template <bool kMeta, XSrc kX>
+inline int launch_args(Args a, void* stream) {
+  const int M = a.M, K = a.K, N = a.N, S = a.S;
+  if (S < 1 || S > 8 || S > K / kGroup) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dequant_gemm<kMeta, kX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<kX>(kTileM));
+  if (attr != cudaSuccess) return (int)attr;
+  const uintptr_t ptrs = (uintptr_t)a.x | (uintptr_t)a.codes | (uintptr_t)a.scales |
+                         (kMeta ? (uintptr_t)a.meta : 0);
+  a.rows_x = M < kTileM ? (M + 7) / 8 * 8 : kTileM;
+  a.aligned = N % 16 == 0 && ptrs % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kBlockN - 1) / kBlockN, S, (M + kTileM - 1) / kTileM);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes<kX>(a.rows_x);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = S;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, dequant_gemm<kMeta, kX>, a);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// out (M, N) = x (M, K) bf16 @ W, its K groups cut into S <= 8 splits.
 template <bool kMeta>
 inline int launch(const void* x, const void* codes, const void* scales, const void* meta,
                   void* out, int M, int K, int N, int S, void* stream) {
-  if (S < 1 || S > 8 || S > K / kGroup) return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      dequant_gemm<kMeta>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kStages * (kFixedBytes + kTileM * kXPitch * 2));
-  if (attr != cudaSuccess) return (int)attr;
-  const uintptr_t ptrs = (uintptr_t)x | (uintptr_t)codes | (uintptr_t)scales |
-                         (kMeta ? (uintptr_t)meta : 0);
-  Args a;
+  Args a = {};
   a.x = (const __nv_bfloat16*)x;
   a.codes = (const uint8_t*)codes;
   a.scales = (const uint8_t*)scales;
@@ -421,22 +580,7 @@ inline int launch(const void* x, const void* codes, const void* scales, const vo
   a.K = K;
   a.N = N;
   a.S = S;
-  a.rows_x = M < kTileM ? (M + 7) / 8 * 8 : kTileM;
-  a.aligned = N % 16 == 0 && ptrs % 16 == 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kBlockN - 1) / kBlockN, S, (M + kTileM - 1) / kTileM);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kStages * (kFixedBytes + a.rows_x * kXPitch * 2);
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = S;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, dequant_gemm<kMeta>, a);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  return launch_args<kMeta, XSrc::kDense>(a, stream);
 }
 
 }  // namespace

@@ -4,8 +4,9 @@ The reference keeps a second, table-free copy of the format conversions for
 its Pallas kernels. The port's ``core.dtypes`` is already table-free
 (exponent-field construction, shifts and selects), so the plain versions
 here are those functions under the reference's kernel-side names. Their
-CUDA counterparts are the ``__device__`` helpers ``exp2i``, ``fp4_mag`` and
-``decode`` of ``csrc/mx_dequant_gemm.cuh``. Conventions:
+CUDA counterparts are the ``__device__`` helpers of ``csrc/mx_bits.cuh``
+(``exp2i``, ``floor_log2``, ``fp4_mag``, ``fp6_mag``, ``fp4_code``,
+``fp6_code``, ``rtne_fp4``, ``rtne_fp6``). Conventions:
 
   FP4 sign-magnitude: bit3 = sign, bits2..0 = E2M1 magnitude code
   E2M1 code c: c==0 -> 0, c==1 -> 0.5, else 2^((c>>1)-1) * (1 + (c&1)/2)

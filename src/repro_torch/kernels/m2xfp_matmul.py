@@ -9,8 +9,10 @@ holds both):
     ``repro_torch.kernels.ref.m2xfp_matmul_ref``.
   * ``QKERNEL`` -- the fully packed W4A4 GEMM, Elem-EM-packed X (K-major) @
     Sg-EM-packed W: port of ``m2xfp_qmatmul_kernel``
-    (``csrc/m2xfp_qmatmul.cu``). X decodes through the Top-1 Decode Unit.
-    Plain version: ``repro_torch.kernels.ref.m2xfp_qmatmul_ref``.
+    (``csrc/m2xfp_qmatmul.cu``), the dequant-GEMM's template with X decoded
+    through the Top-1 Decode Unit into its bf16 operand and the same split
+    plan, so it equals ``KERNEL`` on the decoded X bit for bit. Plain
+    version: ``repro_torch.kernels.ref.m2xfp_qmatmul_ref``.
 
 ``KERNEL.launches`` and ``QKERNEL.launches`` count the launches of this
 process.
@@ -21,7 +23,7 @@ import ctypes
 
 import torch
 
-from ._build import Binding, CudaKernel, check_k, check_stream
+from ._build import Binding, CudaKernel, check_k, check_stream, split_k
 
 __all__ = ["KERNEL", "QKERNEL"]
 
@@ -30,11 +32,12 @@ STREAMS = ("codes", "scales", "meta")
 
 class QMatmulKernel(Binding):
     """``int m2xfp_qmatmul(x_codes, x_scales, x_meta, w_codes, w_scales,
-    w_meta, out, M, K, N, stream)``."""
+    w_meta, out, M, K, N, S, stream)``; ``S`` is :func:`split_k`, as for
+    the dequant-GEMMs."""
 
     def __init__(self):
         super().__init__("m2xfp_qmatmul",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3)
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
 
     def __call__(self, x_packed: dict, w_packed: dict) -> torch.Tensor:
         """Elem-EM X streams (K-major, M columns) @ Sg-EM W streams (N
@@ -60,7 +63,8 @@ class QMatmulKernel(Binding):
             return out
         self.launch(xc.device, *(x_packed[s].data_ptr() for s in STREAMS),
                     *(w_packed[s].data_ptr() for s in STREAMS),
-                    out.data_ptr(), m, k, n, where=f"M={m} K={k} N={n}")
+                    out.data_ptr(), m, k, n, split_k(k, n),
+                    where=f"M={m} K={k} N={n}")
         return out
 
 

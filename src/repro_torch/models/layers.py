@@ -1,7 +1,13 @@
 """Shared model layers: norms, rotary embeddings, MLP, embedding table
 (port of repro.models.layers). bf16 rounds at the reference's points: the
 norm and the rotation compute in f32 and cast back to the input dtype, and
-``silu`` runs in f32 before the cast to bf16."""
+``silu`` runs in f32 before the cast to bf16.
+
+The norm's sum of squares is folded in halves with elementwise adds, in an
+order fixed by the width alone. A library reduction on the card picks its
+order from the number of rows, so a row normed among B*T rows in chunked
+prefill could differ by an ulp from the same row normed among B in decode,
+and one ulp can flip an m2xfp top-1 and an FP4 rounding downstream."""
 from __future__ import annotations
 
 import torch
@@ -14,10 +20,22 @@ __all__ = [
 ]
 
 
+def _sum_halves(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, keeping it: fold the axis in halves
+    (``x[..., :h] + x[..., h:2h]``) until one element is left; an odd length
+    carries its last element into the next fold. Each fold is elementwise,
+    so a row's sum has the same bits however many rows share the call."""
+    while x.shape[-1] > 1:
+        n, h = x.shape[-1], x.shape[-1] // 2
+        folded = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([folded, x[..., 2 * h:]], dim=-1) if n % 2 else folded
+    return x
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    var = _sum_halves(xf * xf) / xf.shape[-1]
     out = xf * torch.rsqrt(var + eps) * w.to(torch.float32)
     return out.to(x.dtype)
 

@@ -18,6 +18,14 @@ The CUDA kernel runs only on the card. What it computes is fixed here:
     the float64 plain version, its rows do not depend on M, and a one-group
     fault of the weight still breaks the tolerance.
 
+The W4A4 GEMM (``csrc/m2xfp_qmatmul.cu``) is the same template with X
+decoded through the Top-1 Decode Unit into the bf16 operand, so the same
+emulation, fed ``ref.decode_x_elem_em_ref``'s decoded X, is its order too:
+the decoded X is bf16-exact for every code, meta field and scale byte 1-254;
+on X whose partial sums are all exact the emulation equals the plain version
+bit for bit, and on heavy-tailed X it stays within chip_smoke.py's
+W4A4_TOLERANCE ``sqrt(K) * 2^-24 * (|Xdec| @ |Wdec|)``.
+
 The reference's Pallas kernels and plain versions are held against the
 port's plain versions in tests/test_torch_kernels.py; this file needs no
 JAX.
@@ -28,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import heavy_tailed
 from repro_torch.kernels import _build, layout, ref
 
 PROJ_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096)]   # (K, N)
@@ -227,3 +236,105 @@ def test_emulated_order_depends_on_the_splits():
     want = ref.m2xfp_matmul_ref(x, wp)
     assert bool(((a - want).abs() <= tol).all())
     assert bool(((b - want).abs() <= tol).all())
+
+
+# ------------------------------------------- the W4A4 GEMM on decoded X
+
+def test_decoded_x_is_bf16_exact_exhaustively():
+    """Every FP4 code x every 2-bit meta field x every scale byte 1-254,
+    as the top-1 element (its FP6 value) and as a tied element after it (its
+    FP4 value): the Top-1 Decode Unit's output is exact in bf16, so the
+    kernel's bf16 x operand is the decoded X itself."""
+    c, f, s = torch.meshgrid(torch.arange(16), torch.arange(4),
+                             torch.arange(1, 255), indexing="ij")
+    c, f, s = (t.reshape(-1).to(torch.int32) for t in (c, f, s))
+    codes = torch.zeros(32, c.numel(), dtype=torch.int32)
+    codes[0] = c                          # top-1 of subgroup 0 (first max)
+    codes[1] = c                          # its tie: keeps the FP4 value
+    codes[8] = 15 - c                     # subgroup 1: another code
+    xp = {"codes": layout.interleave_pack(codes),
+          "scales": s.to(torch.uint8)[None],
+          "meta": (f | (f << 2)).to(torch.uint8)[None]}
+    xdec = ref.decode_x_elem_em_ref(xp)                    # (M, K) f32
+    finite = torch.isfinite(xdec)
+    assert torch.equal(xdec.to(torch.bfloat16).float()[finite],
+                       xdec[finite])
+    assert torch.equal(torch.isinf(xdec.to(torch.bfloat16).float()),
+                       torch.isinf(xdec))
+    assert not bool(torch.isnan(xdec).any())
+    # both paths were taken: FP6 values (not on the FP4 grid) and FP4 ones
+    mant = xdec[:, 0][xdec[:, 0] != 0] / 2.0 ** torch.floor(
+        torch.log2(xdec[:, 0][xdec[:, 0] != 0].abs()))
+    assert bool(((mant.abs() * 8) % 2 == 1).any())       # 3 mantissa bits
+
+
+def _edge_x() -> torch.Tensor:
+    """(8, 128) activations in the style of test_torch_w4a4's edge inputs:
+    top-1 ties (also between +x and -x), negatives that round to FP4 zero,
+    FP4 and FP6 midpoints, FP4 saturation, FP6 codes clamped from below and
+    above, an all-zero group, scales 1, 2^-3 and 2^5, negated and rolled
+    rows."""
+    e = np.float32([
+        2.55, 2.55, -2.55, 1.0, 0.0, -0.0, -0.2, 0.1,
+        5.0, 4.25, 4.75, 2.125, 3.875, 1.0625, 5.75, 6.5,
+        7.9, 6.9, 6.01, 4.0, -7.9, 0.25, 0.75, 1.25,
+        1.75, 2.5, 3.5, -5.0, -0.24, 0.0, 0.0, 0.0])
+    row = np.concatenate([e, np.zeros(32, np.float32), e * 2.0 ** -3,
+                          e * 2.0 ** 5])
+    rows = [row, -row, np.roll(row, 5), np.roll(-row, 11)]
+    rows += [np.roll(row, 3 * i) * 2.0 ** -i for i in range(4)]
+    return torch.from_numpy(np.stack(rows).astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", ["rn", "rz"])
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_w4a4_emulated_order_exact_sums_equal_plain(s, mode):
+    """On edge activations and a weight on a coarse grid, every partial sum
+    of the kernel's order is exact in f32 (each product is a multiple of a
+    common quantum and every partial sum stays below 2^24 quanta, checked
+    here), so the emulation equals the plain version bit for bit at any
+    split count."""
+    xp = layout.pack_x_elem_em(_edge_x())
+    xdec = ref.decode_x_elem_em_ref(xp)
+    w = torch.from_numpy(np.random.default_rng(0).integers(
+        -3, 4, (128, 24)).astype(np.float32))
+    wp = layout.pack_w_sgem(w)
+    wdec = ref.decode_w_sgem_ref(wp)
+    prods = xdec.double()[:, :, None] * wdec.double()[None]
+    mant, exp = torch.frexp(prods[prods != 0].abs())     # exact products
+    ints = (mant * 2.0 ** 53).to(torch.int64)
+    lsb = exp - 53 + torch.log2((ints & -ints).double()).to(torch.int32)
+    quantum = 2.0 ** int(lsb.min())       # every product is a multiple of it
+    bound = (xdec.abs().double() @ wdec.abs().double()).max()
+    assert float(bound / quantum) < 2 ** 24
+    got = _emulate(xdec, wdec, s, mode)
+    assert torch.equal(got, ref.m2xfp_qmatmul_ref(xp, wp))
+
+
+@pytest.mark.parametrize("mode", ["rn", "rz"])
+@pytest.mark.parametrize("k,n_full", PROJ_SHAPES)
+def test_w4a4_emulated_order_within_tolerance(k, n_full, mode):
+    """Heavy-tailed activations (student-t, log-normal channel scales),
+    packed by the quantize engine's plain version, against a 0.02 randn
+    weight with the split count of the projection: the emulated order
+    stays within W4A4_TOLERANCE of the plain version, its rows do not depend
+    on M, and a planted fault of the X meta is flagged."""
+    x = torch.from_numpy(heavy_tailed(np.random.default_rng(k + n_full),
+                                      (16, k)))
+    xp = layout.pack_x_elem_em(x)
+    xdec = ref.decode_x_elem_em_ref(xp)
+    rng = np.random.default_rng(n_full)
+    wp = layout.pack_w_sgem(torch.from_numpy(
+        (rng.standard_normal((k, 16)) * 0.02).astype(np.float32)))
+    wdec = ref.decode_w_sgem_ref(wp)
+    s = _build.split_k(k, n_full)
+    got = _emulate(xdec, wdec, s, mode)
+    tol = k ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(xdec.abs(), wdec.abs())
+    ratio = float(((got - ref.m2xfp_qmatmul_ref(xp, wp)).abs() / tol).max())
+    assert ratio < 1, ratio
+    for m in (1, 8):
+        assert torch.equal(_emulate(xdec[:m], wdec, s, mode), got[:m]), m
+    bad = dict(xp)
+    bad["meta"] = xp["meta"].clone()
+    bad["meta"][0] ^= 0x02
+    assert bool(((got - ref.m2xfp_qmatmul_ref(bad, wp)).abs() > tol).any())

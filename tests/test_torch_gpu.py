@@ -1,11 +1,17 @@
 """Tests of the port that need the card: the CUDA kernels against their
 plain versions (the two dequant-GEMMs, the quantize engine, the W4A4 GEMM
-and flash attention), and the engine's launches. Each decides inside its body
-whether there is a CUDA device and skips without one. This file imports no
-JAX, so it also runs where only the port is installed:
+and flash attention), the engine's launches, and chunked prefill against
+sequential decode at full width. Each decides inside its body whether there
+is a CUDA device and skips without one. This file imports no JAX, so it also
+runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+The tracer that names the first op of the serve path whose rows differ
+between chunked prefill and decode also runs here on the CPU, at smoke size
+(the ``*_on_cpu`` tests).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -115,29 +121,41 @@ def test_cuda_quantize_vs_plain():
 def test_cuda_qmatmul_vs_plain():
     """The W4A4 GEMM within sqrt(K)*2^-24*(|Xdec| @ |Wdec|) of its plain
     version and of the serve GEMM on the same fake-quantized activations,
-    rows independent of M, one launch per call, a refused K mismatch."""
+    and bit-equal to the serve GEMM on the decoded X (the same template and
+    split plan), at M in {1, 8, 17, 64, 65, 129} (unaligned X rows at 1, 17,
+    65 and 129, 8-byte copies at 8) with ragged N = 200 and at a K one group
+    beyond 4096; rows independent of M, two calls equal, one launch per
+    call, a refused K mismatch."""
     _need_cuda()
     gen = torch.Generator("cuda").manual_seed(3)
-    k, n = 4096, 200
-    wp = layout.pack_w_sgem(torch.randn(k, n, generator=gen,
-                                        device="cuda") * 0.02)
-    x = torch.randn(129, k, generator=gen, device="cuda").to(torch.bfloat16)
-    xp = ops.m2xfp_quantize(x)
-    before = QKERNEL.launches
-    got = ops.m2xfp_qmatmul(xp, wp)
-    assert QKERNEL.launches == before + 1
-    xdec = ref.decode_x_elem_em_ref(xp)
-    bound = k ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(
-        xdec.abs(), ref.decode_w_sgem_ref(wp).abs())
-    assert bool(((got - ref.m2xfp_qmatmul_ref(xp, wp)).abs() <= bound).all())
-    serve = ops.m2xfp_matmul(quantize_act_m2xfp(x).to(torch.bfloat16), wp)
-    assert bool(((got - serve).abs() <= 2 * bound).all())
-    for m in (1, 8, 64):
-        part = ops.m2xfp_qmatmul(ops.m2xfp_quantize(x[:m].contiguous()), wp)
-        assert torch.equal(part, got[:m]), m
+    n = 200
+    for k in (4096, 4096 + 32):
+        wp = layout.pack_w_sgem(torch.randn(k, n, generator=gen,
+                                            device="cuda") * 0.02)
+        x = torch.randn(129, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        xp = ops.m2xfp_quantize(x)
+        before = QKERNEL.launches
+        got = ops.m2xfp_qmatmul(xp, wp)
+        assert QKERNEL.launches == before + 1
+        xdec = ref.decode_x_elem_em_ref(xp)
+        bound = k ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(
+            xdec.abs(), ref.decode_w_sgem_ref(wp).abs())
+        assert bool(((got - ref.m2xfp_qmatmul_ref(xp, wp)).abs()
+                     <= bound).all())
+        serve = ops.m2xfp_matmul(quantize_act_m2xfp(x).to(torch.bfloat16), wp)
+        assert bool(((got - serve).abs() <= 2 * bound).all())
+        assert torch.equal(got, ops.m2xfp_matmul(
+            xdec.to(torch.bfloat16).contiguous(), wp))
+        for m in (1, 8, 17, 64, 65):
+            xpm = ops.m2xfp_quantize(x[:m].contiguous())
+            part = ops.m2xfp_qmatmul(xpm, wp)
+            assert torch.equal(part, got[:m]), (k, m)
+            assert torch.equal(ops.m2xfp_qmatmul(xpm, wp), part), (k, m)
+        assert torch.equal(ops.m2xfp_qmatmul(xp, wp), got), k
     with pytest.raises(ValueError, match="stream 'w codes'"):
         ops.m2xfp_qmatmul(xp, layout.pack_w_sgem(
-            torch.zeros(k // 2, n, device="cuda")))
+            torch.zeros(2048, n, device="cuda")))
 
 
 @pytest.mark.gpu
@@ -217,3 +235,219 @@ def test_cuda_flash_attention_edges():
                         where = (hd, sq, dtype, block_k, kw)
                         assert got.shape == (bh, sq, hd), where
                         assert bool(((got - want).abs() <= tol).all()), where
+
+
+# ------------------------------------------ chunked prefill == decode (C1)
+
+def _trace_labels(n_layers: int) -> list:
+    """The traced ops of one serve step, in call order."""
+    gemm = [f"{w} {io}" for w in ("wq", "wk", "wv", "wo") for io in
+            ("input", "output")]
+    ffn = [f"{w} {io}" for w in ("gate", "up", "down") for io in
+           ("input", "output")]
+    return [f"layer {i} {op}" for i in range(n_layers)
+            for op in ["attn_norm", *gemm, "ffn_norm", *ffn]] + ["final_norm"]
+
+
+def _serve_trace(monkeypatch) -> list:
+    """Record, in call order, every rms_norm output of the model and every
+    packed GEMM's input (the fake-quantized bf16 activations) and output;
+    returns the list the calls append (kind, tensor) to."""
+    from repro_torch.models import model, quant
+    log, norm, gemm = [], model.rms_norm, quant.packed_matmul
+
+    def rms_norm(x, w, eps=1e-5):
+        out = norm(x, w, eps)
+        log.append(("norm", out.clone()))
+        return out
+
+    def packed_matmul(x, w, fmt):
+        out = gemm(x, w, fmt)
+        log.extend([("input", x.clone()), ("output", out.clone())])
+        return out
+
+    monkeypatch.setattr(model, "rms_norm", rms_norm)
+    monkeypatch.setattr(quant, "packed_matmul", packed_matmul)
+    return log
+
+
+def _prefill_vs_decode(params, cfg, tokens, log, caches=None, index=None,
+                       lengths=None):
+    """Feed tokens (B, T) through one prefill_chunk on ``caches`` (fresh
+    caches, positions from 0 and every row valid when None) and one at a
+    time through decode_step on a copy of them; ``log`` is _serve_trace's.
+    Returns (prefill logits (B, T, V), decode logits (B, T, V), the first
+    traced op whose valid row differs between the two as (label, position,
+    differing elements, max |difference|), or None)."""
+    from repro_torch.models.model import decode_step, init_caches, \
+        prefill_chunk
+    b, t = tokens.shape
+    dev = tokens.device
+    if caches is None:
+        caches = init_caches(cfg, b, t, dev)
+        index = torch.zeros(b, dtype=torch.long, device=dev)
+        lengths = torch.full((b,), t, device=dev)
+    copy = {"layers": [{k: v.clone() for k, v in c.items()}
+                       for c in caches["layers"]]}
+    log.clear()
+    got = prefill_chunk(params, cfg, {"tokens": tokens}, caches, index,
+                        lengths)
+    chunk_log, step_logs, steps = list(log), [], []
+    for i in range(t):
+        log.clear()
+        steps.append(decode_step(params, cfg, {"tokens": tokens[:, i:i + 1]},
+                                 copy, index + i)[:, 0])
+        step_logs.append(list(log))
+    log.clear()
+    labels = _trace_labels(cfg.n_layers)
+    for trace in (chunk_log, *step_logs):
+        assert [k for k, _ in trace] == [
+            "norm" if "norm" in lb else lb.rsplit(" ", 1)[1] for lb in labels]
+    first = None
+    for j, label in enumerate(labels):
+        pre = chunk_log[j][1].reshape(b, t, -1)
+        for i in range(t):
+            live = lengths > i
+            p, d = pre[live, i], step_logs[i][j][1].reshape(b, -1)[live]
+            if not torch.equal(p, d):
+                first = (label, i, int((p != d).sum()),
+                         float((p.float() - d.float()).abs().max()))
+                break
+        if first is not None:
+            break
+    return got, torch.stack(steps, 1), first
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["m2xfp", "mxfp4"])
+def test_prefill_chunk_bitexact_vs_decode_full_width(fmt, monkeypatch):
+    """Full-width paper-llama2-7b (d 4096, ff 11008, vocab 32000) cut to 2
+    layers, random packed weights from a seeded CUDA generator: one prefill
+    chunk of 8 tokens in 8 slots gives the logits of the same tokens fed
+    through decode_step, bit for bit at every position. On failure the
+    message names the first norm, GEMM input or GEMM output whose row
+    differs."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = get_config("paper-llama2-7b", quant="serve", quant_format=fmt,
+                     n_layers=2)
+    params = init_packed_params(torch.Generator("cuda").manual_seed(0), cfg,
+                                "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (8, 8))).cuda()
+    got, want, first = _prefill_vs_decode(params, cfg, tokens,
+                                          _serve_trace(monkeypatch))
+    assert bool(torch.isfinite(got).all())
+    assert first is None, f"first op whose rows differ: {first}"
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_rms_norm_rows_bitexact_full_width():
+    """C1's first differing op, held on its own: at d = 4096, rms_norm gives
+    a row the same bits among the 64 rows of a prefill chunk (8 slots x 8
+    positions) as among the 8 rows of a decode step, over 512 chunks of bf16
+    rows with log-normal channel scales (a residual stream's spread)."""
+    _need_cuda()
+    from repro_torch.models.layers import rms_norm
+    gen = torch.Generator("cuda").manual_seed(6)
+    d = 4096
+    w = torch.ones(d, device="cuda")
+    ch = torch.exp(0.8 * torch.randn(d, generator=gen, device="cuda"))
+    differ = 0
+    for _ in range(512):
+        x = (torch.randn(8, 8, d, generator=gen, device="cuda") * ch).to(
+            torch.bfloat16)
+        chunk = rms_norm(x, w)
+        for t in range(8):
+            step = rms_norm(x[:, t:t + 1].contiguous(), w)
+            differ += int((step != chunk[:, t:t + 1]).any(-1).sum())
+    assert differ == 0, f"{differ} of {512 * 64} rows differ"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["m2xfp", "mxfp4"])
+def test_engine_prefill_launches_bitexact_vs_decode(fmt, monkeypatch):
+    """chip_smoke.py's serve traffic (full-width, full-depth paper-llama2-7b
+    from seed 0; 16 prompts of 16-128 tokens from seed 0; 8 slots, chunks
+    of 8, 512 positions): each of the engine's first three launches, all
+    prefill, gives at every valid row and position the bits of decode_step
+    fed the same tokens on a copy of the caches, every traced op and the
+    logits; the launch's own result drives the engine on."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.serve import engine
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = get_config("paper-llama2-7b", quant="serve", quant_format=fmt)
+    params = init_packed_params(torch.Generator("cuda").manual_seed(0), cfg,
+                                "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in rng.choice(np.arange(16, 129), 16)]
+    log, launches = _serve_trace(monkeypatch), []
+
+    def shadowed(params, cfg, batch, caches, index, lengths):
+        got, want, first = _prefill_vs_decode(params, cfg, batch["tokens"],
+                                              log, caches, index, lengths)
+        valid = lengths[:, None] > torch.arange(got.shape[1],
+                                                device=got.device)
+        launches.append((first, torch.equal(got[valid], want[valid])))
+        return got
+
+    monkeypatch.setattr(engine, "prefill_chunk", shadowed)
+    eng = engine.ServeEngine(params, cfg, n_slots=8, max_len=512,
+                             prefill_chunk=8, device="cuda")
+    for p in prompts:
+        eng.submit(p, 32)
+    while len(launches) < 3:
+        eng.step()
+    assert eng.stats.prefill_steps == 3
+    for i, (first, same) in enumerate(launches):
+        assert first is None, f"launch {i + 1}: first op whose rows " \
+                              f"differ: {first}"
+        assert same, f"launch {i + 1}: logits differ"
+
+
+def _smoke_params(fmt):
+    from repro_torch.configs import smoke_config
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = smoke_config("paper-llama2-7b", quant="serve", quant_format=fmt)
+    return init_packed_params(torch.Generator().manual_seed(0), cfg,
+                              "cpu"), cfg
+
+
+@pytest.mark.parametrize("fmt", ["m2xfp", "mxfp4"])
+def test_prefill_vs_decode_trace_on_cpu(fmt, monkeypatch):
+    """The full-width test's comparison at smoke size on the CPU: every
+    traced op agrees and so do the logits."""
+    params, cfg = _smoke_params(fmt)
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (3, 5)))
+    got, want, first = _prefill_vs_decode(params, cfg, tokens,
+                                          _serve_trace(monkeypatch))
+    assert first is None, first
+    assert torch.equal(got, want)
+
+
+def test_prefill_vs_decode_trace_names_a_planted_fault_on_cpu(monkeypatch):
+    """A norm whose result depends on the row count (one ulp of the f32
+    sum of squares on rows that share a call with others) is named as the
+    first op that differs, at layer 0's ffn_norm, where it is planted."""
+    from repro_torch.models import layers, model
+    params, cfg = _smoke_params("m2xfp")
+    calls = []
+
+    def row_dependent(x, w, eps=1e-5):
+        calls.append(None)
+        out = layers.rms_norm(x, w, eps)
+        if len(calls) == 2 and x.shape[1] > 1:       # layer 0's ffn_norm
+            out = layers.rms_norm(x * (1 + 2.0 ** -7), w, eps)
+        return out
+
+    monkeypatch.setattr(model, "rms_norm", row_dependent)
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (3, 5)))
+    _, _, first = _prefill_vs_decode(params, cfg, tokens,
+                                     _serve_trace(monkeypatch))
+    assert first is not None and first[0] == "layer 0 ffn_norm", first
