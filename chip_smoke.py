@@ -32,8 +32,14 @@ printing JSON lines:
                  split into host wall time and device time by kernel, after
                  a check that every kernel in the GEMM's library carries
                  "dequant_gemm" in its name, so the split counts them all
-  4. serve    -- the same with the mxfp4 codec
-  5. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
+  4. serve    -- the same weights and traffic with an m2xfp-packed KV cache
+                 (kv_quant="m2xfp", paper Sec. 6.4; the main path's step 5):
+                 the same assertions, and beside them the packed pages'
+                 bytes, the peak memory and the tokens of phase 3 (the
+                 last informative only: the weights are random); then its
+                 decode step split as in phase 3
+  5. serve    -- phase 3 with the mxfp4 codec, at 16 layers (MXFP4_LAYERS)
+  6. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
                  the quantize engine on a 4097-point sweep of [-8, 8] (every
                  FP4 and FP6 code, midpoint and saturation) and the W4A4 GEMM
                  against an identity weight on random X streams (every
@@ -42,7 +48,7 @@ printing JSON lines:
                  (identity x on random streams: every code, meta field and
                  scale byte 0-250, subnormal weights included) equal to the
                  plain decoders
-  6. w4a4     -- the W4A4 datapath (quantize engine, then the fully packed
+  7. w4a4     -- the W4A4 datapath (quantize engine, then the fully packed
                  GEMM) through ``repro_torch.kernels`` for the seven
                  projections of one full-width paper-llama2-7b layer at M in
                  {1, 8, 64, 129, 2048}: streams byte-identical to the plain
@@ -53,7 +59,7 @@ printing JSON lines:
                  operand), rows bit-identical across M, a planted
                  activation-meta fault flagged at every shape, and times
                  beside bound, plain and library
-  7. flash    -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
+  8. flash    -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
                  layer's prefill): causal at S = 512 and 2048, S = 2048 with
                  a 512 window, with softcap 50 on q scaled by 8 (so scores
                  reach the cap), and with the last 64 keys invalid and a
@@ -94,6 +100,11 @@ MS = [1, 8, 64, 129]
 # lengths drawn by SEED from 16..128, TOKENS new tokens each.
 LAYERS, REQUESTS, TOKENS, CHUNK, SEED = 32, 16, 32, 8, 0
 N_SLOTS, MAX_LEN = 8, 512
+# The mxfp4 serve phase (an earlier path, same code as m2xfp's but the
+# codec) runs at half depth, so that the script stays well inside its time
+# limit beside the packed-KV phase (about 420 s of a 766 s run at full
+# depth on NVIDIA H100 80GB HBM3, 700.00 W).
+MXFP4_LAYERS = 16
 # Kernel vs plain: |diff| <= sqrt(K) * 2^-24 * (|x| @ |Wdec|). Every product
 # is exact in f32 and the plain version rounds once, so the kernel's error
 # is its K f32 roundings, which add as a random walk: sqrt(K) * 2^-24 of the
@@ -286,16 +297,28 @@ def kernel_phase(timer, gen, device):
     return summary
 
 
-def serve_phase(codec: str, device, kern, kernels):
-    """Serve REQUESTS requests through the port's engine. Every
-    launch counter is zeroed just before the run and read just after;
-    ``kern`` must have run 7 times per layer per engine launch and every
-    other kernel not at all. Returns (engine, launches of ``kern``)."""
+def kv_cache_bytes(caches) -> int:
+    """Bytes of the K and V pages of every layer (bf16 or packed streams;
+    the position tracks not counted)."""
+    return sum(t.nbytes for c in caches["layers"] for kv in ("k", "v")
+               for t in (c[kv].values() if isinstance(c[kv], dict)
+                         else [c[kv]]))
+
+
+def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
+                layers=LAYERS, bf16_kv=None):
+    """Serve REQUESTS requests through the port's engine, with a bf16 KV
+    cache or one packed in ``kv_quant``. Every launch counter is zeroed
+    just before the run and read just after; ``kern`` must have run 7
+    times per layer per engine launch and every other kernel not at all.
+    ``bf16_kv``: the bf16-KV phase's result with the same weights, which a
+    packed-KV phase prints beside its own. Returns (engine, launches of
+    ``kern``, the phase's result: tokens, peak and cache bytes)."""
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.prequant import init_packed_params
     cfg = get_config("paper-llama2-7b", quant="serve", quant_format=codec,
-                     n_layers=LAYERS)
+                     kv_quant=kv_quant, n_layers=layers)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = init_packed_params(gen, cfg, device)
@@ -326,9 +349,9 @@ def serve_phase(codec: str, device, kern, kernels):
     others = {k.name: k.launches for k in kernels if k is not kern}
     if any(others.values()):
         raise AssertionError(f"{codec} path launched {others}")
-    if launches != 7 * LAYERS * eng.stats.steps:
+    if launches != 7 * layers * eng.stats.steps:
         raise AssertionError(
-            f"{codec}: {launches} kernel launches, expected 7 x {LAYERS} "
+            f"{codec}: {launches} kernel launches, expected 7 x {layers} "
             f"layers x {eng.stats.steps} engine launches")
     if len(eng.scheduler.finished) != len(prompts) or any(
             len(o) != TOKENS for o in outs):
@@ -341,7 +364,21 @@ def serve_phase(codec: str, device, kern, kernels):
             f"{codec}: prefill chunks of {CHUNK} and of 1 gave different "
             f"tokens ({same} of {len(prompts) * TOKENS} agree)")
     st = eng.stats
-    emit("serve", codec=codec, model=cfg.name, layers=LAYERS,
+    result = dict(outs=outs, peak_memory_bytes=peak,
+                  kv_cache_bytes=kv_cache_bytes(eng.caches))
+    vs_bf16 = {}
+    if bf16_kv is not None:
+        agree = sum(a == b for o, o1 in zip(outs, bf16_kv["outs"])
+                    for a, b in zip(o, o1))
+        vs_bf16 = dict(
+            bf16_kv_cache_bytes=bf16_kv["kv_cache_bytes"],
+            kv_cache_ratio=bf16_kv["kv_cache_bytes"]
+            / result["kv_cache_bytes"],
+            bf16_kv_peak_memory_bytes=bf16_kv["peak_memory_bytes"],
+            peak_memory_saved_bytes=bf16_kv["peak_memory_bytes"] - peak,
+            token_agreement_vs_bf16_kv=agree / (len(prompts) * TOKENS))
+    emit("serve", codec=codec, kv_quant=kv_quant, model=cfg.name,
+         layers=layers,
          d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
          n_slots=N_SLOTS, max_len=MAX_LEN, prefill_chunk=CHUNK,
          requests=len(prompts), tokens_out=st.generated_tokens,
@@ -352,10 +389,12 @@ def serve_phase(codec: str, device, kern, kernels):
          decode_step_ms=1e3 * st.decode_wall_s / max(st.decode_steps, 1),
          wall_s=st.wall_s, mean_ttft_steps=eng.mean_ttft_steps(),
          occupancy=st.occupancy, peak_mem_gb=peak / 2 ** 30,
+         peak_memory_bytes=peak, kv_cache_bytes=result["kv_cache_bytes"],
+         **vs_bf16,
          init_and_pack_s=pack_s, kernel=kern.name, launches=launches,
-         launches_expected=7 * LAYERS * st.steps,
+         launches_expected=7 * layers * st.steps,
          token_agreement_vs_chunk1=same / (len(prompts) * TOKENS))
-    return eng, launches
+    return eng, launches, result
 
 
 def gemm_kernel_names(kern) -> list:
@@ -420,7 +459,7 @@ def decode_breakdown(eng, device, kern, steps: int = 3):
             f"device time {total} ms per step exceeds the wall time "
             f"({wall * 1e3} ms, {wall_profiled * 1e3} ms profiled)")
     emit("decode_breakdown", codec=eng.cfg.quant_format,
-         layers=eng.cfg.n_layers, slots=b,
+         kv_quant=eng.cfg.kv_quant, layers=eng.cfg.n_layers, slots=b,
          wall_ms=wall * 1e3, profiled_wall_ms=wall_profiled * 1e3,
          device_ms=total, packed_gemm_ms=gemm,
          other_device_ms=total - gemm, device_idle_share=idle,
@@ -840,15 +879,22 @@ def main() -> int:
     lap("kernels")
 
     kernels = (M2XFP, MXFP4, QUANT, QKERNEL, FLASH)
-    eng, summary["m2xfp_matmul"]["launches"] = serve_phase(
-        "m2xfp", device, M2XFP, kernels)
+    eng, launches, bf16_kv = serve_phase("m2xfp", device, M2XFP, kernels)
     decode_breakdown(eng, device, M2XFP)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     lap("serve_m2xfp")
-    eng, summary["mxfp4_matmul"]["launches"] = serve_phase(
-        "mxfp4", device, MXFP4, kernels)
+    eng, kv_launches, _ = serve_phase("m2xfp", device, M2XFP, kernels,
+                                      kv_quant="m2xfp", bf16_kv=bf16_kv)
+    summary["m2xfp_matmul"]["launches"] = launches + kv_launches
+    decode_breakdown(eng, device, M2XFP)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve_m2xfp_kv_m2xfp")
+    eng, summary["mxfp4_matmul"]["launches"], _ = serve_phase(
+        "mxfp4", device, MXFP4, kernels, layers=MXFP4_LAYERS)
     decode_breakdown(eng, device, MXFP4)
     del eng
     gc.collect()

@@ -2,8 +2,10 @@
 
 One :class:`Codec` record per format, looked up by name, carries what the
 serve path needs: the activation fake-quant, the packed weight encoder and
-its exact decoder, and the fused dequant-GEMM. The slice
-registers the paper's format ``m2xfp`` and its baseline ``mxfp4``.
+its exact decoder, the fused dequant-GEMM, and the packed KV cache's
+encode, decode and zero page. The slice registers the paper's format
+``m2xfp`` and its baseline ``mxfp4``; asking for a path a codec lacks
+raises a ``ValueError`` naming the codecs that have it.
 
 Packed-stream conventions (shared with ``repro_torch.kernels.layout``):
 
@@ -12,7 +14,13 @@ Packed-stream conventions (shared with ``repro_torch.kernels.layout``):
   * ``decode(streams, k, n)``: exact inverse to f32 (K, N);
   * ``decode_dtype``: bf16 -- every decoded E8M0-scaled value fits it;
   * ``kernel(x, streams)``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (``repro_torch.kernels.ops``).
+    version for CPU tensors (``repro_torch.kernels.ops``);
+  * ``kv_encode(x)``: (..., hd) -> dict of u8 streams along hd (paper
+    Sec. 6.4, K/V as right-hand GEMM operands); ``kv_decode`` its exact
+    inverse to bf16; ``kv_spec(b, w, nkv, hd, device)`` a zero page.
+    These are plain PyTorch on either device: elementwise ops, a max, and
+    error sums in a fixed order (``m2xfp._sum_last``), so the bytes do not
+    depend on how many tokens share a call.
 """
 from __future__ import annotations
 
@@ -22,13 +30,21 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.kernels import layout, ops, ref
+from .dtypes import FP4_E2M1, exp2int, fp4_code_to_value, \
+    fp4_value_to_code, round_to_grid
 from .formats import quantize_mxfp4
-from .m2xfp import quantize_act_m2xfp
+from .m2xfp import GROUP, SUBGROUP, quantize_act_m2xfp, \
+    sg_em_dequant_with_scale
+from .packing import group_reshape, pack_meta2, pack_nibbles, \
+    unpack_meta2, unpack_nibbles
+from .scaling import e8m0_decode, e8m0_encode, shared_scale_exponent
 
 __all__ = [
     "Codec", "PackedTensor", "register_codec", "get_codec", "list_codecs",
-    "packed_codecs", "kernel_codecs",
+    "packed_codecs", "kv_codecs", "kernel_codecs",
 ]
+
+N_SUB = GROUP // SUBGROUP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +57,17 @@ class Codec:
     decode: Optional[Callable] = None        # (streams, k, n) -> f32 (K, N)
     decode_dtype: torch.dtype = torch.bfloat16
     kernel: Optional[Callable] = None        # fused dequant-GEMM
+    kv_encode: Optional[Callable] = None     # (..., hd) -> {name: u8}
+    kv_decode: Optional[Callable] = None     # inverse -> bf16 (..., hd)
+    kv_spec: Optional[Callable] = None       # (b, w, nkv, hd, device) -> page
 
     @property
     def packed(self) -> bool:
         return self.encode is not None
+
+    @property
+    def kv_capable(self) -> bool:
+        return self.kv_encode is not None
 
 
 _REGISTRY: dict = {}
@@ -74,6 +97,11 @@ def list_codecs() -> Tuple[str, ...]:
 def packed_codecs() -> Tuple[str, ...]:
     """Codecs with a packed serving-weight path."""
     return tuple(n for n in list_codecs() if _REGISTRY[n].packed)
+
+
+def kv_codecs() -> Tuple[str, ...]:
+    """Codecs with a packed KV-cache path."""
+    return tuple(n for n in list_codecs() if _REGISTRY[n].kv_capable)
 
 
 def kernel_codecs() -> Tuple[str, ...]:
@@ -109,14 +137,104 @@ def _decode_mxfp4(streams: dict, k: int, n: int) -> torch.Tensor:
     return ref.decode_w_mxfp4_ref(streams).reshape(k, n)
 
 
+# ---------------------------------------------------------------------------
+# Packed KV cache (paper Sec. 6.4): groups of 32 along hd, E8M0 floor scale
+# ---------------------------------------------------------------------------
+
+def _kv_scale(x: torch.Tensor):
+    """(..., hd) -> (groups (..., hd/32, 32) f32, exponent (..., hd/32, 1),
+    scale 2^E (..., hd/32, 1))."""
+    xg = group_reshape(x.to(torch.float32), GROUP)
+    e = shared_scale_exponent(xg.abs().amax(dim=-1, keepdim=True))
+    return xg, e, exp2int(e)
+
+
+def _sign_mag_codes(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """FP4 grid values ``q`` of ``x`` -> 4-bit sign-magnitude codes (bit 3
+    set where x < 0, so -0.0 gets the positive code)."""
+    mag = fp4_value_to_code(q.abs())
+    return torch.where(x < 0, mag | 8, mag)
+
+
+def _signed_fp4(codes: torch.Tensor) -> torch.Tensor:
+    """4-bit sign-magnitude codes -> f32 values (code 8 gives -0.0)."""
+    sgn = torch.where((codes & 8) != 0, -1.0, 1.0)
+    return fp4_code_to_value(codes & 7) * sgn
+
+
+def _kv_encode_sgem(x: torch.Tensor) -> dict:
+    """(..., hd) -> Sg-EM fixed-scale streams: codes (..., hd/2), scales
+    and meta (..., hd/32) u8 (no group-bias search: b = 0)."""
+    hd = x.shape[-1]
+    xg, e, s = _kv_scale(x)
+    _, k_sel, _ = sg_em_dequant_with_scale(
+        xg, s, SUBGROUP, bits=2, adaptive=False, return_codes=True)
+    s_final = (1.0 + k_sel.to(torch.float32) / 4.0) * s     # (..., ng, ns)
+    xsub = xg.reshape(*xg.shape[:-1], N_SUB, SUBGROUP)
+    q = round_to_grid(xsub / s_final[..., None], FP4_E2M1)
+    codes = _sign_mag_codes(xsub, q).reshape(*x.shape[:-1], hd)
+    return {
+        "codes": pack_nibbles(codes),
+        "scales": e8m0_encode(e[..., 0]),
+        "meta": pack_meta2(k_sel.reshape(*x.shape[:-1], -1)),
+    }
+
+
+def _kv_decode_sgem(p: dict) -> torch.Tensor:
+    """Sg-EM page -> bf16 (..., hd): fp4 * (1 + k/4) * 2^(scale-127)."""
+    codes = unpack_nibbles(p["codes"])
+    lead, hd = codes.shape[:-1], codes.shape[-1]
+    s = e8m0_decode(p["scales"])[..., None]                  # (..., ng, 1)
+    k = unpack_meta2(p["meta"], (hd // GROUP) * N_SUB)
+    mult = 1.0 + k.to(torch.float32) / 4.0
+    vals = _signed_fp4(codes).reshape(*lead, hd // GROUP, N_SUB, SUBGROUP)
+    out = vals * mult.reshape(*lead, hd // GROUP, N_SUB, 1) * s[..., None]
+    return out.reshape(*lead, hd).to(torch.bfloat16)
+
+
+def _kv_encode_mxfp4(x: torch.Tensor) -> dict:
+    """(..., hd) -> plain MXFP4 streams (no meta byte)."""
+    hd = x.shape[-1]
+    xg, e, s = _kv_scale(x)
+    q = round_to_grid(xg / s, FP4_E2M1)
+    return {
+        "codes": pack_nibbles(_sign_mag_codes(xg, q).reshape(
+            *x.shape[:-1], hd)),
+        "scales": e8m0_encode(e[..., 0]),
+    }
+
+
+def _kv_decode_mxfp4(p: dict) -> torch.Tensor:
+    """MXFP4 page -> bf16 (..., hd): fp4 * 2^(scale-127)."""
+    codes = unpack_nibbles(p["codes"])
+    lead, hd = codes.shape[:-1], codes.shape[-1]
+    s = e8m0_decode(p["scales"])[..., None]
+    vals = _signed_fp4(codes).reshape(*lead, hd // GROUP, GROUP) * s
+    return vals.reshape(*lead, hd).to(torch.bfloat16)
+
+
+def _kv_spec(streams: Tuple[str, ...]) -> Callable:
+    """Zero page of ``streams``: codes (b, w, nkv, hd/2), the others
+    (b, w, nkv, hd/32), all u8."""
+    def spec(batch: int, w: int, nkv: int, hd: int, device="cuda") -> dict:
+        return {name: torch.zeros(
+            (batch, w, nkv, hd // 2 if name == "codes" else hd // GROUP),
+            dtype=torch.uint8, device=device) for name in streams}
+    return spec
+
+
 register_codec(Codec(
     name="m2xfp",
     fake_quant_act=quantize_act_m2xfp,
     encode=layout.pack_w_sgem, decode=_decode_sgem,
-    kernel=ops.m2xfp_matmul))
+    kernel=ops.m2xfp_matmul,
+    kv_encode=_kv_encode_sgem, kv_decode=_kv_decode_sgem,
+    kv_spec=_kv_spec(("codes", "scales", "meta"))))
 
 register_codec(Codec(
     name="mxfp4",
     fake_quant_act=quantize_mxfp4,
     encode=layout.pack_w_mxfp4, decode=_decode_mxfp4,
-    kernel=ops.mxfp4_matmul))
+    kernel=ops.mxfp4_matmul,
+    kv_encode=_kv_encode_mxfp4, kv_decode=_kv_decode_mxfp4,
+    kv_spec=_kv_spec(("codes", "scales"))))

@@ -83,12 +83,15 @@ def elem_em_dequant_with_scale(xg: torch.Tensor, s: torch.Tensor,
 
 
 def sg_em_dequant_with_scale(xg: torch.Tensor, s: torch.Tensor,
-                             subgroup: int, return_codes: bool = False):
-    """Fake-quant Sg-EM-2bit: subgroup scale (1 + k/4) * s with adaptive
-    group exponent bias b in {-1, 0, +1}. Returns dequantized
-    (..., ng, group); with ``return_codes`` also (k (..., ng, n_sub) int32,
-    b (..., ng) int32)."""
-    nk = 4
+                             subgroup: int, bits: int = 2,
+                             adaptive: bool = True,
+                             return_codes: bool = False):
+    """Fake-quant Sg-EM: subgroup scale (1 + k / 2^bits) * s, with the
+    adaptive group exponent bias b in {-1, 0, +1} when ``adaptive`` (else
+    b = 0 only: the packed KV cache's fixed-scale encode). Returns
+    dequantized (..., ng, group); with ``return_codes`` also
+    (k (..., ng, n_sub) int32, b (..., ng) int32)."""
+    nk = 2 ** bits
     xsub = _subgroup(xg, subgroup)                     # (..., ng, ns, sg)
 
     def eval_bias(b):
@@ -105,14 +108,16 @@ def sg_em_dequant_with_scale(xg: torch.Tensor, s: torch.Tensor,
             best_k = torch.where(take, k, best_k)
         return best_err, best_k
 
-    biases = (-1, 0, 1)
+    biases = (-1, 0, 1) if adaptive else (0,)
     errs, ks = [], []
     for b in biases:
         e, k = eval_bias(b)
         errs.append(_sum_last(e))                      # (..., ng)
         ks.append(k)
     b_idx = torch.argmin(torch.stack(errs, dim=-1), dim=-1)   # first min
-    b_val = torch.tensor(biases, dtype=torch.int32, device=xg.device)[b_idx]
+    # the biases are consecutive; no host-to-device copy (which would also
+    # wait for the device) in the KV cache's per-token encode
+    b_val = (b_idx + biases[0]).to(torch.int32)
     k_all = torch.stack(ks, dim=-1)                    # (..., ng, ns, nb)
     idx = b_idx[..., None, None].expand(*k_all.shape[:-1], 1)
     k_sel = torch.gather(k_all, -1, idx)[..., 0]       # (..., ng, ns)

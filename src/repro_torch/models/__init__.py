@@ -1,2 +1,3 @@
 """Dense decoder model of the port: config, numerics, layers, packed
-linear layers, attention over a per-slot KV cache, and the model."""
+linear layers, attention over a per-slot KV cache (bf16 or packed), and
+the model."""

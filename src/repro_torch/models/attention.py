@@ -1,24 +1,29 @@
-"""GQA attention over a per-slot bf16 KV cache (port of the decode and
-chunked-prefill paths of repro.models.attention).
+"""GQA attention over a per-slot KV cache, bf16 or packed (port of the
+decode and chunked-prefill paths of repro.models.attention).
 
 The cache of one layer is ``{"k": (B, W, nkv, hd), "v": (B, W, nkv, hd),
 "pos": (B, W) int32}``: batch row b is request slot b, a ring buffer of W
 positions with its own position track (-1 = empty), so each slot is
-admitted and evicted independently (continuous batching). Unlike the
-reference, which returns a new cache, the port writes the cache in place.
+admitted and evicted independently (continuous batching). With
+``cfg.kv_quant`` set to a codec of ``kv_codecs()``, "k" and "v" are each a
+dict of that codec's u8 streams with the same leading (B, W, nkv) axes
+(``models/kvquant.py``): new tokens are encoded as they are written and the
+whole page is decoded to bf16 before the scores. Unlike the reference,
+which returns a new cache, the port writes the cache in place.
 
 ``_attend_one`` is the one inner step: write ONE token's K/V per row at
 ``index % W`` and attend against the whole page. Decode calls it once;
-chunked prefill projects QKV for the whole chunk in one GEMM and then calls
-it position by position with the same shapes, so every position's result
-is bit-identical to sequential decode. Scores and the probability-weighted
+chunked prefill projects QKV (and encodes packed K/V) for the whole chunk
+at once and then calls it position by position with the same shapes, so
+every position's result is bit-identical to sequential decode. Scores and the probability-weighted
 sum run in f32 on bf16-rounded operands, as the reference does. QKV bias,
-qk-norm, sliding windows, softcaps and KV quantization are not ported yet.
+qk-norm, sliding windows and softcaps are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
+from .kvquant import kv_cache_spec, kv_decode, kv_encode, kv_page_write
 from .layers import apply_rope
 from .quant import init_linear, quantized_matmul
 
@@ -50,27 +55,38 @@ def _project_qkv(p, x, cfg, positions, quant):
     return q, k, v
 
 
-def _attend_one(q, k_new, v_new, out_dtype, cfg, cache, index, valid=None):
+def _cache_rows(k: torch.Tensor, v: torch.Tensor, cfg) -> dict:
+    """New K and V (B, T, nkv, hd) as the cache stores them: bf16 rows, or
+    the packed streams of ``cfg.kv_quant``. The encode works token by token
+    (groups along hd), so a chunk's T tokens encode in one call with the
+    bytes of T one-token calls."""
+    if cfg.kv_quant == "none":
+        return {"k": k, "v": v}
+    return {"k": kv_encode(k, cfg.kv_quant), "v": kv_encode(v, cfg.kv_quant)}
+
+
+def _attend_one(q, rows, out_dtype, cfg, cache, index, valid=None):
     """Write one token's K/V per slot and attend ``q`` against the page.
 
-    q (B,1,nh,hd); k_new/v_new (B,1,nkv,hd); ``index`` (B,) absolute
-    positions; ``valid`` (B,) bool or None -- rows where it is False leave
-    their cache untouched and return garbage context for the caller to
-    discard. Updates ``cache`` in place; returns ctx (B,1,nh*hd)."""
+    q (B,1,nh,hd); ``rows`` = ``_cache_rows`` of one token per slot
+    (leading (B, 1)); ``index`` (B,) absolute positions; ``valid`` (B,)
+    bool or None -- rows where it is False leave their cache untouched and
+    return garbage context for the caller to discard. Updates ``cache`` in
+    place; returns ctx (B,1,nh*hd)."""
     b = q.shape[0]
-    w = cache["k"].shape[1]
+    fmt = cfg.kv_quant
+    w = cache["pos"].shape[1]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    rows = torch.arange(b, device=q.device)
     slot = torch.remainder(index, w)
-    for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0]),
-                      ("pos", index.to(torch.int32))):
-        buf = cache[name]
-        new = new.to(buf.dtype)
-        if valid is not None:
-            keep = valid.reshape((-1,) + (1,) * (new.dim() - 1))
-            new = torch.where(keep, new, buf[rows, slot])
-        buf[rows, slot] = new
-    k, v, pos = cache["k"], cache["v"], cache["pos"]
+    kv_page_write(cache, {"pos": index[:, None]}, slot, valid)
+    if fmt != "none":
+        for name in ("k", "v"):
+            kv_page_write(cache[name], rows[name], slot, valid)
+        k, v = kv_decode(cache["k"], fmt), kv_decode(cache["v"], fmt)
+    else:
+        kv_page_write(cache, rows, slot, valid)
+        k, v = cache["k"], cache["v"]
+    pos = cache["pos"]
 
     g = nh // nkv
     qh = q.reshape(b, nkv, g, hd).to(torch.bfloat16).to(torch.float32)
@@ -91,7 +107,8 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
     """One-token decode for every slot: x (B,1,d), ``index`` (B,) absolute
     positions. Updates ``cache`` in place; returns out (B,1,d)."""
     q, k_new, v_new = _project_qkv(p, x, cfg, index[:, None], quant)
-    ctx = _attend_one(q, k_new, v_new, x.dtype, cfg, cache, index)
+    ctx = _attend_one(q, _cache_rows(k_new, v_new, cfg), x.dtype, cfg, cache,
+                      index)
     return quantized_matmul(ctx, p["wo"], quant)
 
 
@@ -101,25 +118,36 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg, cache: dict,
     """Chunked prefill: up to T tokens per slot in one call. x (B,T,d); row
     b's valid tokens are ``x[b, :lengths[b]]`` at positions ``index[b]``
     onward (``lengths`` may be 0 for idle rows). The QKV and output
-    projections run once over the chunk; the cache write and attend run
-    position by position through ``_attend_one``. Returns out (B,T,d)."""
+    projections and the K/V encode run once over the chunk; the cache write
+    and attend run position by position through ``_attend_one``. Returns
+    out (B,T,d)."""
     t = x.shape[1]
     offs = torch.arange(t, dtype=index.dtype, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, index[:, None] + offs, quant)
-    ctxs = [
-        _attend_one(q[:, i:i + 1], k_new[:, i:i + 1], v_new[:, i:i + 1],
-                    x.dtype, cfg, cache, index + i, valid=i < lengths)
-        for i in range(t)]
+    rows = _cache_rows(k_new, v_new, cfg)
+
+    def at(node, i):
+        if isinstance(node, dict):
+            return {key: at(val, i) for key, val in node.items()}
+        return node[:, i:i + 1]
+    ctxs = [_attend_one(q[:, i:i + 1], at(rows, i), x.dtype, cfg, cache,
+                        index + i, valid=i < lengths)
+            for i in range(t)]
     return quantized_matmul(torch.cat(ctxs, dim=1), p["wo"], quant)
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> dict:
-    """Empty bf16 per-slot cache of ``max_len`` positions for ``batch``
-    slots."""
+    """Empty per-slot cache of ``max_len`` positions for ``batch`` slots:
+    bf16 pages, or zeroed packed pages of ``cfg.kv_quant``."""
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+
+    def page():
+        if cfg.kv_quant != "none":
+            return kv_cache_spec(*shape, cfg.kv_quant, device)
+        return torch.zeros(shape, dtype=torch.bfloat16, device=device)
     return {
-        "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        "k": page(),
+        "v": page(),
         "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
                           device=device),
     }

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import attention as attn
+from .kvquant import kv_codec
 from .layers import init_embedding, init_mlp, mlp_apply, rms_norm
 from .numerics import dot_f32acc
 from .quant import pack_serving_weight
@@ -32,7 +33,9 @@ _PACK_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
 def check_supported(cfg) -> None:
-    """Raise for configuration features the port has not taken yet."""
+    """Raise for configuration features the port has not taken yet, and
+    (``ValueError`` naming ``kv_codecs()``) for a ``kv_quant`` codec with
+    no packed KV path."""
     missing = [name for name, on in (
         (f"family={cfg.family!r}", cfg.family != "dense"),
         ("experts", cfg.is_moe),
@@ -44,12 +47,13 @@ def check_supported(cfg) -> None:
         ("qkv_bias", cfg.qkv_bias),
         ("tie_embeddings", cfg.tie_embeddings),
         (f"input_mode={cfg.input_mode!r}", cfg.input_mode != "tokens"),
-        (f"kv_quant={cfg.kv_quant!r}", cfg.kv_quant != "none"),
     ) if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the torch port serves dense attention models "
             f"only; not ported yet: {', '.join(missing)}")
+    if cfg.kv_quant != "none":
+        kv_codec(cfg.kv_quant)
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +93,8 @@ def init_params(gen: torch.Generator, cfg, device="cuda") -> dict:
 
 
 def init_caches(cfg, batch: int, max_len: int, device="cuda") -> dict:
-    """Per-slot KV caches of every layer (``attention.init_cache``)."""
+    """Per-slot KV caches of every layer (``attention.init_cache``): bf16,
+    or packed in ``cfg.kv_quant``."""
     check_supported(cfg)
     return {"layers": [attn.init_cache(cfg, batch, max_len, device)
                        for _ in range(cfg.n_layers)]}

@@ -36,7 +36,10 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def pack_serving_weight(w: torch.Tensor, fmt: str = "m2xfp") -> PackedTensor:
-    """(K, N) weight -> packed codec streams, groups along K (axis 0)."""
+    """(K, N) weight -> packed codec streams, groups along K (axis 0).
+    A weight on the "meta" device gives streams of the right shapes and
+    dtypes on "meta" (each stream's rows per group of 32 read off the
+    encode of one group), without running the encoder."""
     codec = get_codec(fmt)
     if not codec.packed:
         raise ValueError(f"codec {fmt!r} has no packed serving path; "
@@ -44,7 +47,14 @@ def pack_serving_weight(w: torch.Tensor, fmt: str = "m2xfp") -> PackedTensor:
     if w.dim() != 2:
         raise ValueError(f"pack_serving_weight takes a (K, N) weight, got "
                          f"shape {tuple(w.shape)}")
-    return PackedTensor(codec.encode(w), tuple(w.shape), fmt)
+    k, n = w.shape
+    if w.is_meta:
+        streams = {name: torch.empty((s.shape[0] * (k // 32), n),
+                                     dtype=s.dtype, device="meta")
+                   for name, s in codec.encode(torch.zeros(32, 1)).items()}
+    else:
+        streams = codec.encode(w)
+    return PackedTensor(streams, (k, n), fmt)
 
 
 def decode_serving_weight(p: PackedTensor, dtype=None) -> torch.Tensor:

@@ -1,15 +1,18 @@
 """Batched autoregressive serving engine over packed weights (port of
 repro.serve.engine without its guard, telemetry and weight verification).
 
-The engine owns a packed parameter dict (``prequantize_params``), per-slot
-KV caches (``init_caches``: batch row b is request slot b, with its own
-position track) and a host-side ``SlotScheduler``. Every step is ONE
+The engine owns a packed parameter dict (``prequantize_params`` or
+``load_packed_checkpoint``), per-slot KV caches (``init_caches``: batch row
+b is request slot b, with its own position track; the K/V pages are bf16,
+or packed in ``cfg.kv_quant``, e.g. m2xfp at 4.5 bits per element) and a
+host-side ``SlotScheduler``. Every step is ONE
 launch over all slots: when every planned chunk is one token it is a
 ``decode_step``; otherwise a ``prefill_chunk`` in which prefilling slots
 consume up to ``prefill_chunk`` prompt tokens, decode slots their next
 token, and idle slots nothing (length 0, masked out of every cache write).
-Both launches give bit-identical logits per token. Admission resets the
-slot's position track, which masks every stale KV entry.
+Both launches give bit-identical logits per token. Admission resets only
+the slot's position track, which masks every stale KV entry, packed bytes
+included.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: the CUDA kernels against their
 plain versions (the two dequant-GEMMs, the quantize engine, the W4A4 GEMM
-and flash attention), the engine's launches, and chunked prefill against
-sequential decode at full width. Each decides inside its body whether there
+and flash attention), the packed KV cache's encode and decode against the
+same calls on the CPU, the engine's launches, and chunked prefill against
+sequential decode at full width, with bf16 and packed KV caches. Each decides inside its body whether there
 is a CUDA device and skips without one. This file imports no JAX, so it also
 runs where only the port is installed:
 
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import heavy_tailed
+from test_torch_serve import _clone_caches
 from repro_torch.core.m2xfp import quantize_act_m2xfp
 from repro_torch.kernels import layout, ops, ref
 from repro_torch.kernels.flash_attention import KERNEL as FLASH_KERNEL
@@ -30,6 +33,9 @@ CODECS = {
     "mxfp4": (layout.pack_w_mxfp4, ops.mxfp4_matmul, ref.mxfp4_matmul_ref,
               ref.decode_w_mxfp4_ref, MXFP4_KERNEL),
 }
+
+
+KV_QUANTS = ["none", "m2xfp", "mxfp4"]
 
 
 def _need_cuda():
@@ -237,6 +243,44 @@ def test_cuda_flash_attention_edges():
                         assert bool(((got - want).abs() <= tol).all()), where
 
 
+# ------------------------------------------------ packed KV cache on the card
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["m2xfp", "mxfp4"])
+def test_cuda_kv_encode_decode_equal_cpu(fmt):
+    """kv_encode and kv_decode on the card give the bytes and bf16 bits of
+    the same calls on the CPU, at full width (8 slots x 32 heads x hd 128)
+    over 64 draws: normal rows at scales 2^-20..2^20, heavy-tailed rows,
+    bf16-rounded rows (the model's K/V) and random page bytes to decode.
+    Every group maximum is 0 or >= 2^-100 (ROADMAP, queue C)."""
+    _need_cuda()
+    from repro_torch.models.kvquant import kv_cache_spec, kv_decode, \
+        kv_encode
+    rng = np.random.default_rng(7)
+    shape = (8, 1, 32, 128)
+    for i in range(64):
+        if i % 2:
+            x = heavy_tailed(rng, (256, 128)).reshape(shape)
+        else:
+            x = rng.standard_normal(shape).astype(np.float32)
+        x *= np.float32(2.0 ** rng.integers(-20, 21))
+        xs = [torch.from_numpy(x)]
+        xs.append(xs[0].to(torch.bfloat16))
+        for xc in xs:
+            want = kv_encode(xc, fmt)
+            got = kv_encode(xc.cuda(), fmt)
+            for k in want:
+                assert torch.equal(got[k].cpu(), want[k]), (i, k, xc.dtype)
+            assert torch.equal(kv_decode(got, fmt).cpu(),
+                               kv_decode(want, fmt)), (i, xc.dtype)
+        page = {k: torch.from_numpy(rng.integers(
+            2 if k == "scales" else 0, 256, v.shape, dtype=np.uint8))
+            for k, v in kv_cache_spec(8, 64, 32, 128, fmt, "cpu").items()}
+        got = kv_decode({k: v.cuda() for k, v in page.items()}, fmt).cpu()
+        assert torch.equal(got.view(torch.int16),
+                           kv_decode(page, fmt).view(torch.int16)), i
+
+
 # ------------------------------------------ chunked prefill == decode (C1)
 
 def _trace_labels(n_layers: int) -> list:
@@ -278,7 +322,8 @@ def _prefill_vs_decode(params, cfg, tokens, log, caches=None, index=None,
     time through decode_step on a copy of them; ``log`` is _serve_trace's.
     Returns (prefill logits (B, T, V), decode logits (B, T, V), the first
     traced op whose valid row differs between the two as (label, position,
-    differing elements, max |difference|), or None)."""
+    differing elements, max |difference|), or None, the decode side's
+    caches)."""
     from repro_torch.models.model import decode_step, init_caches, \
         prefill_chunk
     b, t = tokens.shape
@@ -287,8 +332,7 @@ def _prefill_vs_decode(params, cfg, tokens, log, caches=None, index=None,
         caches = init_caches(cfg, b, t, dev)
         index = torch.zeros(b, dtype=torch.long, device=dev)
         lengths = torch.full((b,), t, device=dev)
-    copy = {"layers": [{k: v.clone() for k, v in c.items()}
-                       for c in caches["layers"]]}
+    copy = _clone_caches(caches)
     log.clear()
     got = prefill_chunk(params, cfg, {"tokens": tokens}, caches, index,
                         lengths)
@@ -315,32 +359,45 @@ def _prefill_vs_decode(params, cfg, tokens, log, caches=None, index=None,
                 break
         if first is not None:
             break
-    return got, torch.stack(steps, 1), first
+    return got, torch.stack(steps, 1), first, copy
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", KV_QUANTS)
 @pytest.mark.parametrize("fmt", ["m2xfp", "mxfp4"])
-def test_prefill_chunk_bitexact_vs_decode_full_width(fmt, monkeypatch):
+def test_prefill_chunk_bitexact_vs_decode_full_width(fmt, kv_quant,
+                                                     monkeypatch):
     """Full-width paper-llama2-7b (d 4096, ff 11008, vocab 32000) cut to 2
-    layers, random packed weights from a seeded CUDA generator: one prefill
-    chunk of 8 tokens in 8 slots gives the logits of the same tokens fed
-    through decode_step, bit for bit at every position. On failure the
-    message names the first norm, GEMM input or GEMM output whose row
-    differs."""
+    layers, random packed weights from a seeded CUDA generator, a bf16 or
+    packed KV cache: one prefill chunk of 8 tokens in 8 slots gives the
+    logits of the same tokens fed through decode_step, bit for bit at every
+    position, and leaves the same cache bytes. On failure the message names
+    the first norm, GEMM input or GEMM output whose row differs."""
     _need_cuda()
     from repro_torch.configs import get_config
+    from repro_torch.models.model import init_caches
     from repro_torch.serve.prequant import init_packed_params
     cfg = get_config("paper-llama2-7b", quant="serve", quant_format=fmt,
-                     n_layers=2)
+                     kv_quant=kv_quant, n_layers=2)
     params = init_packed_params(torch.Generator("cuda").manual_seed(0), cfg,
                                 "cuda")
     tokens = torch.from_numpy(np.random.default_rng(16).integers(
         0, cfg.vocab_size, (8, 8))).cuda()
-    got, want, first = _prefill_vs_decode(params, cfg, tokens,
-                                          _serve_trace(monkeypatch))
+    caches = init_caches(cfg, 8, 8, "cuda")
+    got, want, first, seq_caches = _prefill_vs_decode(
+        params, cfg, tokens, _serve_trace(monkeypatch), caches,
+        torch.zeros(8, dtype=torch.long, device="cuda"),
+        torch.full((8,), 8, device="cuda"))
     assert bool(torch.isfinite(got).all())
     assert first is None, f"first op whose rows differ: {first}"
     assert torch.equal(got, want)
+    for i, (a, b) in enumerate(zip(caches["layers"],
+                                   seq_caches["layers"])):
+        for name in a:
+            pa, pb = (a[name], b[name]) if isinstance(a[name], dict) \
+                else ({"": a[name]}, {"": b[name]})
+            for s in pa:
+                assert torch.equal(pa[s], pb[s]), (i, name, s)
 
 
 @pytest.mark.gpu
@@ -367,19 +424,23 @@ def test_rms_norm_rows_bitexact_full_width():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", KV_QUANTS)
 @pytest.mark.parametrize("fmt", ["m2xfp", "mxfp4"])
-def test_engine_prefill_launches_bitexact_vs_decode(fmt, monkeypatch):
+def test_engine_prefill_launches_bitexact_vs_decode(fmt, kv_quant,
+                                                    monkeypatch):
     """chip_smoke.py's serve traffic (full-width, full-depth paper-llama2-7b
     from seed 0; 16 prompts of 16-128 tokens from seed 0; 8 slots, chunks
-    of 8, 512 positions): each of the engine's first three launches, all
-    prefill, gives at every valid row and position the bits of decode_step
-    fed the same tokens on a copy of the caches, every traced op and the
-    logits; the launch's own result drives the engine on."""
+    of 8, 512 positions; a bf16 or packed KV cache): each of the engine's
+    first three launches, all prefill, gives at every valid row and
+    position the bits of decode_step fed the same tokens on a copy of the
+    caches, every traced op and the logits; the launch's own result drives
+    the engine on."""
     _need_cuda()
     from repro_torch.configs import get_config
     from repro_torch.serve import engine
     from repro_torch.serve.prequant import init_packed_params
-    cfg = get_config("paper-llama2-7b", quant="serve", quant_format=fmt)
+    cfg = get_config("paper-llama2-7b", quant="serve", quant_format=fmt,
+                     kv_quant=kv_quant)
     params = init_packed_params(torch.Generator("cuda").manual_seed(0), cfg,
                                 "cuda")
     rng = np.random.default_rng(0)
@@ -388,8 +449,8 @@ def test_engine_prefill_launches_bitexact_vs_decode(fmt, monkeypatch):
     log, launches = _serve_trace(monkeypatch), []
 
     def shadowed(params, cfg, batch, caches, index, lengths):
-        got, want, first = _prefill_vs_decode(params, cfg, batch["tokens"],
-                                              log, caches, index, lengths)
+        got, want, first, _ = _prefill_vs_decode(
+            params, cfg, batch["tokens"], log, caches, index, lengths)
         valid = lengths[:, None] > torch.arange(got.shape[1],
                                                 device=got.device)
         launches.append((first, torch.equal(got[valid], want[valid])))
@@ -424,8 +485,8 @@ def test_prefill_vs_decode_trace_on_cpu(fmt, monkeypatch):
     params, cfg = _smoke_params(fmt)
     tokens = torch.from_numpy(np.random.default_rng(16).integers(
         0, cfg.vocab_size, (3, 5)))
-    got, want, first = _prefill_vs_decode(params, cfg, tokens,
-                                          _serve_trace(monkeypatch))
+    got, want, first, _ = _prefill_vs_decode(params, cfg, tokens,
+                                             _serve_trace(monkeypatch))
     assert first is None, first
     assert torch.equal(got, want)
 
@@ -448,6 +509,6 @@ def test_prefill_vs_decode_trace_names_a_planted_fault_on_cpu(monkeypatch):
     monkeypatch.setattr(model, "rms_norm", row_dependent)
     tokens = torch.from_numpy(np.random.default_rng(16).integers(
         0, cfg.vocab_size, (3, 5)))
-    _, _, first = _prefill_vs_decode(params, cfg, tokens,
-                                     _serve_trace(monkeypatch))
+    _, _, first, _ = _prefill_vs_decode(params, cfg, tokens,
+                                        _serve_trace(monkeypatch))
     assert first is not None and first[0] == "layer 0 ffn_norm", first

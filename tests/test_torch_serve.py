@@ -59,57 +59,75 @@ def _flatten(tree):
     return np.asarray(tree)
 
 
+def reference_serve(packed, cfg, out: dict, key: str) -> None:
+    """In the child: the reference engine's greedy tokens for PROMPTS, and
+    the per-position logits of decode_step over SEQ and of one
+    prefill_chunk with LENGTHS, with the caches after each, into ``out``'s
+    "tokens", "logits" and "caches" under ``key``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.model import decode_step, init_caches, prefill_chunk
+    from repro.serve import ServeEngine
+
+    out["tokens"][key] = ServeEngine(packed, cfg, guard=False, **ENGINE
+                                     ).generate(PROMPTS, N_NEW)
+    step = jax.jit(lambda p, b, c, i: decode_step(p, cfg, b, c, i))
+    caches = init_caches(cfg, 2, 16, per_slot=True)
+    seq = []
+    for t in range(SEQ.shape[1]):
+        lg, caches = step(packed, {"tokens": jnp.asarray(SEQ[:, t:t + 1])},
+                          caches, jnp.full((2,), t, jnp.int32))
+        seq.append(np.asarray(lg[:, 0]))
+    out["logits"][f"decode_{key}"] = np.stack(seq, axis=1)   # (B, T, V)
+    out["caches"][f"decode_{key}"] = _flatten(caches)
+    chunk = jax.jit(lambda p, b, c, i, n: prefill_chunk(p, cfg, b, c, i, n))
+    lg, caches = chunk(packed, {"tokens": jnp.asarray(SEQ)},
+                       init_caches(cfg, 2, 16, per_slot=True),
+                       jnp.zeros((2,), jnp.int32),
+                       jnp.asarray(LENGTHS, jnp.int32))
+    out["logits"][f"prefill_{key}"] = np.asarray(lg)
+    out["caches"][f"prefill_{key}"] = _flatten(caches)
+
+
 def _reference_main(out_path: str) -> None:
     """Child process: the reference's dense and packed trees (numpy
     leaves), its engine's greedy tokens and its per-position logits."""
     import jax
-    import jax.numpy as jnp
     from repro.models.config import ModelConfig
-    from repro.models.model import (
-        decode_step, init_caches, init_params, prefill_chunk)
-    from repro.serve import ServeEngine, prequantize_params
+    from repro.models.model import init_params
+    from repro.serve import prequantize_params
 
     params = init_params(jax.random.PRNGKey(0), ModelConfig(**BASE))
     out = {"dense": _flatten(params), "packed": {}, "tokens": {},
-           "logits": {}}
+           "logits": {}, "caches": {}}
     for fmt in FORMATS:
         cfg = ModelConfig(**BASE, quant_format=fmt)
         packed = prequantize_params(params, cfg)
         out["packed"][fmt] = _flatten(packed)
-        out["tokens"][fmt] = ServeEngine(packed, cfg, guard=False, **ENGINE
-                                         ).generate(PROMPTS, N_NEW)
-        step = jax.jit(
-            lambda p, b, c, i, cfg=cfg: decode_step(p, cfg, b, c, i))
-        caches = init_caches(cfg, 2, 16, per_slot=True)
-        seq = []
-        for t in range(SEQ.shape[1]):
-            lg, caches = step(packed, {"tokens": jnp.asarray(SEQ[:, t:t + 1])},
-                              caches, jnp.full((2,), t, jnp.int32))
-            seq.append(np.asarray(lg[:, 0]))
-        out["logits"][f"decode_{fmt}"] = np.stack(seq, axis=1)  # (B, T, V)
-        chunk = jax.jit(lambda p, b, c, i, n, cfg=cfg:
-                        prefill_chunk(p, cfg, b, c, i, n))
-        lg, _ = chunk(packed, {"tokens": jnp.asarray(SEQ)},
-                      init_caches(cfg, 2, 16, per_slot=True),
-                      jnp.zeros((2,), jnp.int32),
-                      jnp.asarray(LENGTHS, jnp.int32))
-        out["logits"][f"prefill_{fmt}"] = np.asarray(lg)
+        reference_serve(packed, cfg, out, fmt)
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
+
+
+def run_reference_child(script: str, tmp_path_factory):
+    """Run ``script`` (a test file whose ``__main__`` pickles the
+    reference's results to the path it is given) in a child with XLA's
+    excess precision off (see module docstring); return what it wrote."""
+    out = tmp_path_factory.mktemp("reference") / "reference.pkl"
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
+                        + " --xla_allow_excess_precision=false").strip()
+    subprocess.run([sys.executable, script, str(out)], env=env,
+                   check=True, timeout=900)
+    with open(out, "rb") as f:      # written by the child just above
+        return pickle.load(f)
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """What ``_reference_main`` computed, in a child with XLA's excess
     precision off (see module docstring)."""
-    out = tmp_path_factory.mktemp("reference") / "reference.pkl"
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                        + " --xla_allow_excess_precision=false").strip()
-    subprocess.run([sys.executable, __file__, str(out)], env=env,
-                   check=True, timeout=900)
-    with open(out, "rb") as f:      # written by the child just above
-        return pickle.load(f)
+    return run_reference_child(__file__, tmp_path_factory)
 
 
 def _port_cfg(fmt="m2xfp", **kw):
@@ -209,43 +227,60 @@ def test_decode_and_prefill_logits_match_reference(reference, fmt):
 # (c) chunked prefill == sequential decode, within the port
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("chunk,lengths", [(1, (1, 1, 1)), (3, (3, 3, 3)),
-                                           (8, (8, 8, 8)), (8, (8, 3, 0))])
-@pytest.mark.parametrize("fmt", FORMATS)
-def test_prefill_chunk_bitexact_vs_decode(fmt, chunk, lengths):
-    from repro_torch.configs import smoke_config
+CHUNKS = [(1, (1, 1, 1)), (3, (3, 3, 3)), (8, (8, 8, 8)), (8, (8, 3, 0))]
+
+
+def _clone_caches(caches):
+    """A copy of the per-layer caches (packed K/V pages are stream dicts)."""
+    return {"layers": [
+        {k: ({s: t.clone() for s, t in v.items()} if isinstance(v, dict)
+             else v.clone()) for k, v in layer.items()}
+        for layer in caches["layers"]]}
+
+
+def check_prefill_chunk_bitexact_vs_decode(cfg, chunk, lengths):
+    """After a shared two-token history, one prefill_chunk with ``lengths``
+    valid tokens per row gives at every valid row and position the logits
+    of decode_step fed the same tokens (rows advance only while valid), and
+    leaves the same caches, bf16 or packed, byte for byte."""
     from repro_torch.models.model import (
         decode_step, init_caches, prefill_chunk)
     from repro_torch.serve.prequant import init_packed_params
-    cfg = smoke_config("paper-llama2-7b", quant="serve", quant_format=fmt)
     params = init_packed_params(torch.Generator().manual_seed(0), cfg, "cpu")
     b = len(lengths)
     rng = np.random.default_rng(chunk)
     warm = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 2)))
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, chunk)))
     lens = torch.tensor(lengths)
-    seq_c, chunk_c = (init_caches(cfg, b, 16, "cpu") for _ in range(2))
-    for caches in (seq_c, chunk_c):        # a shared two-token history
-        for t in range(2):
-            decode_step(params, cfg, {"tokens": warm[:, t:t + 1]}, caches,
-                        torch.full((b,), t))
+    seq_c = init_caches(cfg, b, 16, "cpu")
+    for t in range(2):                     # a shared two-token history
+        decode_step(params, cfg, {"tokens": warm[:, t:t + 1]}, seq_c,
+                    torch.full((b,), t))
+    chunk_c = _clone_caches(seq_c)
     got = prefill_chunk(params, cfg, {"tokens": toks}, chunk_c,
                         torch.full((b,), 2), lens)
-    for t in range(chunk):                 # rows advance only while valid
-        live = lens > t
-        step_c = init_caches(cfg, b, 16, "cpu")
-        for layer, src in zip(step_c["layers"], seq_c["layers"]):
-            for k in layer:
-                layer[k].copy_(src[k])
+    for t in range(chunk):
+        step_c = _clone_caches(seq_c)
         want = decode_step(params, cfg, {"tokens": toks[:, t:t + 1]}, step_c,
                            torch.full((b,), 2 + t))[:, 0]
-        for layer, src in zip(seq_c["layers"], step_c["layers"]):
-            for k in layer:
-                keep = live.reshape((-1,) + (1,) * (layer[k].dim() - 1))
-                layer[k].copy_(torch.where(keep, src[k], layer[k]))
-        for row in np.nonzero(live.numpy())[0]:
+        for row in np.nonzero((lens > t).numpy())[0]:   # rows still valid
             assert torch.equal(got[row, t], want[row]), (row, t)
+            for layer, src in zip(seq_c["layers"], step_c["layers"]):
+                for k, v in layer.items():
+                    pairs = zip(v.values(), src[k].values()) \
+                        if isinstance(v, dict) else [(v, src[k])]
+                    for buf, new in pairs:
+                        buf[row] = new[row]
     _assert_same_tree(chunk_c, seq_c)
+
+
+@pytest.mark.parametrize("chunk,lengths", CHUNKS)
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_prefill_chunk_bitexact_vs_decode(fmt, chunk, lengths):
+    from repro_torch.configs import smoke_config
+    check_prefill_chunk_bitexact_vs_decode(
+        smoke_config("paper-llama2-7b", quant="serve", quant_format=fmt),
+        chunk, lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -266,11 +301,10 @@ def test_engine_tokens_match_reference(reference, fmt):
 # (e) slot reuse, (f) submit validation
 # ---------------------------------------------------------------------------
 
-def test_slot_reuse_matches_requests_served_alone(reference):
+def check_slot_reuse(params, cfg):
     """Five ragged requests through two slots (slots are reused, prefill
     and decode mix) give each request's tokens served alone in one slot."""
     from repro_torch.serve.engine import ServeEngine
-    params, cfg = _port_packed(reference, "m2xfp"), _port_cfg()
     rng = np.random.default_rng(3)
     prompts = [list(map(int, rng.integers(0, 97, n))) for n in (5, 3, 9, 2, 6)]
     eng = ServeEngine(params, cfg, n_slots=2, max_len=24, prefill_chunk=3,
@@ -283,6 +317,10 @@ def test_slot_reuse_matches_requests_served_alone(reference):
         alone = ServeEngine(params, cfg, n_slots=1, max_len=24,
                             prefill_chunk=1, device="cpu")
         assert alone.generate([prompt], 4) == [got]
+
+
+def test_slot_reuse_matches_requests_served_alone(reference):
+    check_slot_reuse(_port_packed(reference, "m2xfp"), _port_cfg())
 
 
 def test_submit_rejects_overlong_and_empty_requests(reference):
