@@ -24,22 +24,39 @@ printing JSON lines:
                  first-data latency, wait, compute and tail cycles)
   3. serve    -- continuous-batching serving of full-width, full-depth
                  paper-llama2-7b (random weights from SEED, packed m2xfp)
-                 through the port's ServeEngine; every projection must go
-                 through the m2xfp kernel, and the same traffic served with
+                 through the port's ServeEngine, its guard on (the default);
+                 every projection must go through the m2xfp kernel, the
+                 guard must stay healthy with nothing quarantined, scrubbed
+                 or retried, and the same traffic served with
                  prefill chunks of 1 must give the same tokens (chunked
                  prefill is bit-identical to decode); then one all-slots
                  decode step
                  split into host wall time and device time by kernel, after
                  a check that every kernel in the GEMM's library carries
-                 "dequant_gemm" in its name, so the split counts them all
-  4. serve    -- the same weights and traffic with an m2xfp-packed KV cache
-                 (kv_quant="m2xfp", paper Sec. 6.4; the main path's step 5):
-                 the same assertions, and beside them the packed pages'
-                 bytes, the peak memory and the tokens of phase 3 (the
-                 last informative only: the weights are random); then its
+                 "dequant_gemm" in its name, so the split counts them all,
+                 and the engine's decode launch timed with the guard on and
+                 off (guard_wall_ms_delta, guard_device_ms_delta)
+  4. serve    -- the same traffic with an m2xfp-packed KV cache
+                 (kv_quant="m2xfp", paper Sec. 6.4; the main path's step 5)
+                 on the first 16 of the same layers (PACKED_KV_LAYERS): the
+                 same assertions, and beside them the packed pages' bytes
+                 against phase 3's pages at the same depth; then its
                  decode step split as in phase 3
-  5. serve    -- phase 3 with the mxfp4 codec, at 16 layers (MXFP4_LAYERS)
-  6. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
+  5. guard    -- the serving guard on the same weights at full depth, with
+                 a bf16 and an m2xfp-packed KV cache: 12 requests (prompts
+                 of 16-64 tokens, 16 new tokens, 8 slots) fault-free with
+                 the guard on, equal to guard=False, then under a FaultPlan
+                 chosen from that run (NaN logits in one slot, a poisoned
+                 KV page in another, a transient failure, a delay past the
+                 armed watchdog): exactly the planned slots' requests are
+                 quarantined, every other request (one of them in a
+                 scrubbed slot) keeps its fault-free tokens, the scrubbed
+                 pages read zero in every layer, the health recovers within
+                 RECOVERY_STEPS; then packed-stream validation of the
+                 weights (validate_ms) and a planted scale byte 255
+                 reported and repaired by clamp
+  6. serve    -- phase 3 with the mxfp4 codec, at 16 layers (MXFP4_LAYERS)
+  7. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
                  the quantize engine on a 4097-point sweep of [-8, 8] (every
                  FP4 and FP6 code, midpoint and saturation) and the W4A4 GEMM
                  against an identity weight on random X streams (every
@@ -48,7 +65,7 @@ printing JSON lines:
                  (identity x on random streams: every code, meta field and
                  scale byte 0-250, subnormal weights included) equal to the
                  plain decoders
-  7. w4a4     -- the W4A4 datapath (quantize engine, then the fully packed
+  8. w4a4     -- the W4A4 datapath (quantize engine, then the fully packed
                  GEMM) through ``repro_torch.kernels`` for the seven
                  projections of one full-width paper-llama2-7b layer at M in
                  {1, 8, 64, 129, 2048}: streams byte-identical to the plain
@@ -59,7 +76,7 @@ printing JSON lines:
                  operand), rows bit-identical across M, a planted
                  activation-meta fault flagged at every shape, and times
                  beside bound, plain and library
-  8. flash    -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
+  9. flash    -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
                  layer's prefill): causal at S = 512 and 2048, S = 2048 with
                  a 512 window, with softcap 50 on q scaled by 8 (so scores
                  reach the cap), and with the last 64 keys invalid and a
@@ -105,6 +122,17 @@ N_SLOTS, MAX_LEN = 8, 512
 # limit beside the packed-KV phase (about 420 s of a 766 s run at full
 # depth on NVIDIA H100 80GB HBM3, 700.00 W).
 MXFP4_LAYERS = 16
+# The packed-KV serve phase (an earlier path since the guard phase came)
+# runs at half depth too: with it at full depth and the guard phase the
+# script took 1170 s of its 1200 s limit (packed-KV phase 540 s, guard phase
+# 233 s; NVIDIA H100 80GB HBM3, 700.00 W). Its first 16 layers are the
+# full-depth weights' first 16.
+PACKED_KV_LAYERS = 16
+# Guard phase traffic: 12 requests (more than the 8 slots, so a quarantined
+# slot is reused), prompts drawn by SEED from 16..64 tokens, GUARD_TOKENS new
+# tokens each, on the m2xfp weights of the serve phase at full depth.
+GUARD_REQUESTS, GUARD_TOKENS, GUARD_PROMPTS = 12, 16, (16, 64)
+RECOVERY_STEPS = 3                  # GuardConfig's default
 # Kernel vs plain: |diff| <= sqrt(K) * 2^-24 * (|x| @ |Wdec|). Every product
 # is exact in f32 and the plain version rounds once, so the kernel's error
 # is its K f32 roundings, which add as a random walk: sqrt(K) * 2^-24 of the
@@ -306,24 +334,29 @@ def kv_cache_bytes(caches) -> int:
 
 
 def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
-                layers=LAYERS, bf16_kv=None):
-    """Serve REQUESTS requests through the port's engine, with a bf16 KV
-    cache or one packed in ``kv_quant``. Every launch counter is zeroed
-    just before the run and read just after; ``kern`` must have run 7
-    times per layer per engine launch and every other kernel not at all.
-    ``bf16_kv``: the bf16-KV phase's result with the same weights, which a
-    packed-KV phase prints beside its own. Returns (engine, launches of
-    ``kern``, the phase's result: tokens, peak and cache bytes)."""
+                layers=LAYERS, bf16_kv=None, params=None):
+    """Serve REQUESTS requests through the port's engine (its guard on, as
+    by default), with a bf16 KV cache or one packed in ``kv_quant``. Every
+    launch counter is zeroed just before the run and read just after;
+    ``kern`` must have run 7 times per layer per engine launch and every
+    other kernel not at all, and the guard must have stayed healthy with
+    nothing quarantined, scrubbed or retried. ``bf16_kv``: the bf16-KV
+    phase's result with the same weights, which a packed-KV phase prints
+    beside its own. ``params``: weights an earlier phase packed from SEED
+    (else packed here). Returns (engine, launches of ``kern``, the phase's
+    result: tokens, peak and cache bytes)."""
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.prequant import init_packed_params
     cfg = get_config("paper-llama2-7b", quant="serve", quant_format=codec,
                      kv_quant=kv_quant, n_layers=layers)
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    params = init_packed_params(gen, cfg, device)
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
+    pack_s = None
+    if params is None:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        params = init_packed_params(gen, cfg, device)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
                for n in rng.choice(np.arange(16, 129), REQUESTS)]
@@ -339,6 +372,10 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
                           device=device)
         outs = eng.generate(prompts, TOKENS)
         torch.cuda.synchronize()
+        g = eng.guard_summary()
+        if g["state"] != "healthy" or g["quarantines"] or g["scrubs"] \
+                or g["retries"]:
+            raise AssertionError(f"{codec}: the guard saw faults: {g}")
         return eng, outs
 
     torch.cuda.reset_peak_memory_stats()
@@ -364,19 +401,22 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
             f"{codec}: prefill chunks of {CHUNK} and of 1 gave different "
             f"tokens ({same} of {len(prompts) * TOKENS} agree)")
     st = eng.stats
-    result = dict(outs=outs, peak_memory_bytes=peak,
+    result = dict(outs=outs, peak_memory_bytes=peak, layers=layers,
                   kv_cache_bytes=kv_cache_bytes(eng.caches))
     vs_bf16 = {}
     if bf16_kv is not None:
-        agree = sum(a == b for o, o1 in zip(outs, bf16_kv["outs"])
-                    for a, b in zip(o, o1))
-        vs_bf16 = dict(
-            bf16_kv_cache_bytes=bf16_kv["kv_cache_bytes"],
-            kv_cache_ratio=bf16_kv["kv_cache_bytes"]
-            / result["kv_cache_bytes"],
-            bf16_kv_peak_memory_bytes=bf16_kv["peak_memory_bytes"],
-            peak_memory_saved_bytes=bf16_kv["peak_memory_bytes"] - peak,
-            token_agreement_vs_bf16_kv=agree / (len(prompts) * TOKENS))
+        # every layer's pages have the same bytes, so the bf16 phase's
+        # pages at this depth are its pages times layers / its layers
+        bf16_pages = bf16_kv["kv_cache_bytes"] * layers // bf16_kv["layers"]
+        vs_bf16 = dict(bf16_kv_cache_bytes_same_depth=bf16_pages,
+                       kv_cache_ratio=bf16_pages / result["kv_cache_bytes"])
+        if layers == bf16_kv["layers"]:
+            agree = sum(a == b for o, o1 in zip(outs, bf16_kv["outs"])
+                        for a, b in zip(o, o1))
+            vs_bf16.update(
+                bf16_kv_peak_memory_bytes=bf16_kv["peak_memory_bytes"],
+                peak_memory_saved_bytes=bf16_kv["peak_memory_bytes"] - peak,
+                token_agreement_vs_bf16_kv=agree / (len(prompts) * TOKENS))
     emit("serve", codec=codec, kv_quant=kv_quant, model=cfg.name,
          layers=layers,
          d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
@@ -391,7 +431,8 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
          occupancy=st.occupancy, peak_mem_gb=peak / 2 ** 30,
          peak_memory_bytes=peak, kv_cache_bytes=result["kv_cache_bytes"],
          **vs_bf16,
-         init_and_pack_s=pack_s, kernel=kern.name, launches=launches,
+         init_and_pack_s=pack_s, guard=eng.guard_summary(),
+         kernel=kern.name, launches=launches,
          launches_expected=7 * layers * st.steps,
          token_agreement_vs_chunk1=same / (len(prompts) * TOKENS))
     return eng, launches, result
@@ -464,7 +505,280 @@ def decode_breakdown(eng, device, kern, steps: int = 3):
          device_ms=total, packed_gemm_ms=gemm,
          other_device_ms=total - gemm, device_idle_share=idle,
          gemm_kernel_names=names,
-         top_kernels_ms={k[:80]: v for k, v in top})
+         top_kernels_ms={k[:80]: v for k, v in top},
+         **guard_cost(eng, device))
+
+
+def _device_ms(prof, steps: int) -> float:
+    """Device-side kernel time per step of a torch.profiler run."""
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / steps
+
+
+def guard_cost(eng, device, steps: int = 2) -> dict:
+    """The engine's all-slots decode launch (the model, then the sampled
+    rows to the host) with its guard on, against the same launch of a
+    guard=False engine on the same weights and caches: wall ms per step
+    (host clock, median of three alternating runs, no profiler) and device
+    ms per step (torch.profiler), and the differences. The sentinels must
+    flag nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import ServeEngine
+    off = ServeEngine(eng.params, eng.cfg, n_slots=eng.n_slots,
+                      max_len=eng.max_len, guard=False, device=device)
+    off.caches = eng.caches
+    engines = {"on": eng, "off": off}
+    for e in engines.values():
+        e._index[:] = 128
+        e._tokens[:] = 0
+
+    def run(e):
+        for _ in range(steps):
+            e._launch_decode({})          # ends in the copy to the host
+
+    walls = {k: [] for k in engines}
+    for e in engines.values():
+        run(e)
+    for _ in range(3):
+        for k, e in engines.items():
+            t0 = time.perf_counter()
+            run(e)
+            walls[k].append((time.perf_counter() - t0) / steps * 1e3)
+    dev = {}
+    for k, e in engines.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(e)
+        dev[k] = _device_ms(prof, steps)
+    flagged = {site: int(c.sum()) for site, c in eng.guard.drain().items()}
+    if any(flagged.values()):
+        raise AssertionError(f"the sentinels flagged clean decode steps: "
+                             f"{flagged}")
+    wall = {k: statistics.median(v) for k, v in walls.items()}
+    return dict(guard_on_wall_ms=wall["on"], guard_off_wall_ms=wall["off"],
+                guard_wall_ms_delta=wall["on"] - wall["off"],
+                guard_on_device_ms=dev["on"], guard_off_device_ms=dev["off"],
+                guard_device_ms_delta=dev["on"] - dev["off"])
+
+
+def _slot_scrubbed(caches, slot: int) -> bool:
+    """True if ``slot``'s rows of every layer's cache are in the init
+    state: position track -1, bf16 pages or packed streams all zero."""
+    flags = []
+    for layer in caches["layers"]:
+        flags.append((layer["pos"][slot] != -1).any())
+        for name in ("k", "v"):
+            page = layer[name]
+            for t in (page.values() if isinstance(page, dict) else [page]):
+                flags.append((t[slot] != 0).any())
+    return not bool(torch.stack(flags).any())
+
+
+def _guard_run(params, cfg, prompts, device, guard=None, plan=None,
+               scrub_at=None):
+    """Serve ``prompts`` through one engine step by step, under ``plan``
+    (a FaultPlan) if given. Records per launch (keyed on the engine's step
+    counter) which request held which slot, whether it was a decode launch
+    and how many requests waited; per step its wall seconds and the health
+    after it; and, right after each step of ``scrub_at`` ({step: slot}),
+    whether that slot was back in its init state."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.testing import FaultInjector
+    eng = ServeEngine(params, cfg, n_slots=N_SLOTS, max_len=MAX_LEN,
+                      prefill_chunk=CHUNK, guard=guard, device=device)
+    reqs = [eng.submit(p, GUARD_TOKENS) for p in prompts]
+    log = {}
+
+    def recorded(fn, decode):
+        def launch(*args):
+            log[eng.stats.steps] = (
+                {slot: r.rid for slot, r in eng.scheduler.active.items()},
+                decode, len(eng.scheduler.queue))
+            return fn(*args)
+        return launch
+
+    eng._step = recorded(eng._step, True)
+    eng._prefill = recorded(eng._prefill, False)
+    inj = FaultInjector(eng, plan).install() if plan is not None else None
+    dts, health, scrubbed = [], [], {}
+    t_run = time.perf_counter()
+    while eng.scheduler.has_work:
+        step = eng.stats.steps
+        t0 = time.perf_counter()
+        eng.step()
+        dts.append(time.perf_counter() - t0)
+        health.append(eng.health)
+        if scrub_at and step in scrub_at:
+            scrubbed[step] = _slot_scrubbed(eng.caches, scrub_at[step])
+    torch.cuda.synchronize()
+    return dict(eng=eng, reqs=reqs, log=log, dts=dts, health=health,
+                scrubbed=scrubbed, wall_s=time.perf_counter() - t_run,
+                fired=sorted(inj.fired) if inj else [])
+
+
+def _plan_faults(log, n_steps: int):
+    """Fault steps and slots chosen from a fault-free run's launch log:
+    the NaN logits at the first decode launch with every slot busy and
+    requests waiting (so the freed slot is reused), in slot 2; the KV
+    poison 3 launches later in a slot whose request is the same at both
+    launches; then a transient failure and a delay past the watchdog, 2
+    and 4 launches after that; the health must recover before the end."""
+    t_nan = next((t for t in sorted(log) if t >= 2 and log[t][1]
+                  and len(log[t][0]) == N_SLOTS and log[t][2] > 0), None)
+    if t_nan is None:
+        raise AssertionError("guard traffic: no decode launch with every "
+                             "slot busy and requests waiting")
+    s_nan, t_kv = 2, t_nan + 3
+    s_kv = next((s for s in (5, 6, 7, 0, 1, 3, 4)
+                 if log.get(t_kv, ({}, 0, 0))[0].get(s) is not None
+                 and log[t_kv][0][s] == log[t_nan][0].get(s)), None)
+    if s_kv is None:
+        raise AssertionError("guard traffic: no slot keeps its request "
+                             f"from launch {t_nan} to {t_kv}")
+    t_fail, t_delay = t_kv + 2, t_kv + 4
+    if t_delay + RECOVERY_STEPS >= n_steps:
+        raise AssertionError("guard traffic: too few launches to recover")
+    return t_nan, s_nan, t_kv, s_kv, t_fail, t_delay
+
+
+def guard_phase(params, device, kern, kernels) -> int:
+    """The serving guard at full width and depth (m2xfp weights ``params``
+    from phase 3), with a bf16 and an m2xfp-packed KV cache: the traffic
+    fault-free with the guard on (equal to guard=False), then under a
+    FaultPlan (NaN logits, a poisoned KV page, a transient failure, a delay
+    past the armed watchdog): exactly the planned slots' requests are
+    quarantined, every other request keeps its fault-free tokens, the
+    scrubbed pages read zero, the health recovers. Launch counts are zeroed
+    just before each faulted run and read just after. Then packed-stream
+    validation of the weights and a repair by clamp. Returns the faulted
+    runs' launches of ``kern``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.codecs import PackedTensor, validate_packed_tree
+    from repro_torch.serve import GuardConfig, verify_packed_tree
+    from repro_torch.testing import FaultPlan
+    rng = np.random.default_rng(SEED)
+    lo, hi = GUARD_PROMPTS
+    vocab = get_config("paper-llama2-7b").vocab_size
+    prompts = [list(map(int, rng.integers(0, vocab, n)))
+               for n in rng.choice(np.arange(lo, hi + 1), GUARD_REQUESTS)]
+    total_launches = 0
+    for kv_quant in ("none", "m2xfp"):
+        cfg = get_config("paper-llama2-7b", quant="serve",
+                         quant_format="m2xfp", kv_quant=kv_quant,
+                         n_layers=LAYERS)
+        clean = _guard_run(params, cfg, prompts, device)
+        off = _guard_run(params, cfg, prompts, device, guard=False)
+        outs = [r.output for r in clean["reqs"]]
+        if [r.output for r in off["reqs"]] != outs:
+            raise AssertionError(f"guard kv={kv_quant}: guard=False gave "
+                                 f"other tokens than the guard")
+        t_nan, s_nan, t_kv, s_kv, t_fail, t_delay = _plan_faults(
+            clean["log"], len(clean["dts"]))
+        watchdog = 2 * max(clean["dts"]) + 0.5
+        delay = 1.25 * watchdog
+        plan = FaultPlan(seed=SEED, nan_logit_steps=((t_nan, s_nan),),
+                         kv_poison_steps=((t_kv, s_kv),),
+                         fail_steps=(t_fail,),
+                         delay_steps=((t_delay, delay),))
+        for k in kernels:                 # the path's counts start here
+            k.launches = 0
+        run = _guard_run(params, cfg, prompts, device,
+                         guard=GuardConfig(watchdog_s=watchdog), plan=plan,
+                         scrub_at={t_nan: s_nan, t_kv: s_kv})
+        eng, reqs, log = run["eng"], run["reqs"], run["log"]
+        launches = kern.launches
+        others = {k.name: k.launches for k in kernels if k is not kern}
+        total_launches += launches
+        want = {log[t_nan][0][s_nan]: "logits", log[t_kv][0][s_kv]: "kv"}
+        got = {r.rid: r.fail_reason for r in reqs
+               if r.state == "quarantined"}
+        survivors = [r for r in reqs if r.rid not in want]
+        reused = sorted({log[t][0][s] for t in log for s in (s_nan, s_kv)
+                         if t > (t_nan if s == s_nan else t_kv)
+                         and s in log[t][0]})
+        g = eng.guard_summary()
+        h = run["health"]
+        checks = {
+            "fired": len(run["fired"]) == 4,
+            "quarantined": got == want,
+            "survivors_bit_identical": all(
+                r.state == "finished" and r.output == outs[r.rid]
+                for r in survivors),
+            "scrubbed_slot_reused": bool(reused),
+            "scrubbed_pages_zero": run["scrubbed"] == {t_nan: True,
+                                                       t_kv: True},
+            "summary": (g["quarantines"], g["retries"], g["watchdog_trips"],
+                        g["scrubs"], g["state"]) == (2, 1, 1, 0, "healthy"),
+            "recovery": (set(h[:t_nan]) == {"healthy"}
+                         and set(h[t_nan:t_delay + RECOVERY_STEPS])
+                         == {"degraded"}
+                         and h[t_delay + RECOVERY_STEPS] == "healthy"),
+            "launches": (launches == 7 * LAYERS * eng.stats.steps
+                         and not any(others.values())),
+        }
+        emit("guard", kv_quant=kv_quant, layers=LAYERS, requests=len(reqs),
+             n_slots=N_SLOTS, max_len=MAX_LEN, prefill_chunk=CHUNK,
+             new_tokens=GUARD_TOKENS, plan=plan.describe(),
+             watchdog_s=watchdog, delay_s=delay, fired=run["fired"],
+             quarantined={str(k): v for k, v in got.items()},
+             expected_quarantined={str(k): v for k, v in want.items()},
+             reused_scrubbed_slot_by=reused, survivors=len(survivors),
+             guard=g, health_trace="".join(x[0] for x in h),
+             steps=eng.stats.steps, clean_steps=len(clean["dts"]),
+             max_clean_step_ms=1e3 * max(clean["dts"]),
+             wall_s={"guard_on": clean["wall_s"], "guard_off": off["wall_s"],
+                     "faulted": run["wall_s"]},
+             kernel=kern.name, launches=launches,
+             launches_expected=7 * LAYERS * eng.stats.steps,
+             checks=checks)
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"guard kv={kv_quant}: checks failed: "
+                                 f"{failed}")
+        del clean, off, run, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # Packed-stream validation of the full-width weights, then a planted
+    # scale byte 255 in one layer's wq, repaired by clamp (no dense source
+    # weights here: re-quantization is covered by the CPU tests).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    intact = validate_packed_tree(params)
+    validate_ms = (time.perf_counter() - t0) * 1e3
+    if intact:
+        raise AssertionError(f"intact weights reported: {intact}")
+    layer = 17 % LAYERS
+    wq = params["layers"][layer]["attn"]["wq"]
+    at = tuple(i % n for i, n in zip((3, 100), wq.streams["scales"].shape))
+    bad_scales = wq.streams["scales"].clone()
+    bad_scales[at] = 255
+    bad = dict(params, layers=list(params["layers"]))
+    bad["layers"][layer] = dict(params["layers"][layer], attn=dict(
+        params["layers"][layer]["attn"], wq=PackedTensor(
+            {**wq.streams, "scales": bad_scales}, wq.shape, wq.codec)))
+    report = validate_packed_tree(bad)
+    want = {"layers/attn/wq": [
+        f"1 scale byte(s) outside the legal e8m0 range [1, 254] (first at "
+        f"index ({layer}, {at[0]}, {at[1]}), byte 255)"]}
+    fixed, repairs = verify_packed_tree(bad)
+    expect = wq.streams["scales"].clone()
+    expect[at] = 254
+    repaired = torch.equal(fixed["layers"][layer]["attn"]["wq"]
+                           .streams["scales"], expect) and all(
+        torch.equal(fixed["layers"][i]["attn"]["wq"].streams["scales"],
+                    params["layers"][i]["attn"]["wq"].streams["scales"])
+        for i in range(LAYERS) if i != layer)
+    emit("guard", check="weights", layers=LAYERS, validate_ms=validate_ms,
+         intact_report=intact, planted=f"layer {layer} wq scales{at} = 255",
+         report=report, repairs=repairs, repaired_bytes_equal=repaired,
+         report_after_repair=validate_packed_tree(fixed))
+    if report != want or repairs != [("layers/attn/wq", "clamp")] \
+            or not repaired or validate_packed_tree(fixed):
+        raise AssertionError("guard: the planted weight byte was not "
+                             "reported or repaired as expected")
+    return total_launches
 
 
 def bitmath_phase(gen, device):
@@ -881,18 +1195,27 @@ def main() -> int:
     kernels = (M2XFP, MXFP4, QUANT, QKERNEL, FLASH)
     eng, launches, bf16_kv = serve_phase("m2xfp", device, M2XFP, kernels)
     decode_breakdown(eng, device, M2XFP)
+    params = eng.params
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     lap("serve_m2xfp")
-    eng, kv_launches, _ = serve_phase("m2xfp", device, M2XFP, kernels,
-                                      kv_quant="m2xfp", bf16_kv=bf16_kv)
-    summary["m2xfp_matmul"]["launches"] = launches + kv_launches
+    eng, kv_launches, _ = serve_phase(
+        "m2xfp", device, M2XFP, kernels, kv_quant="m2xfp",
+        layers=PACKED_KV_LAYERS, bf16_kv=bf16_kv,
+        params=dict(params, layers=params["layers"][:PACKED_KV_LAYERS]))
     decode_breakdown(eng, device, M2XFP)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     lap("serve_m2xfp_kv_m2xfp")
+    guard_launches = guard_phase(params, device, M2XFP, kernels)
+    summary["m2xfp_matmul"]["launches"] = (launches + kv_launches
+                                           + guard_launches)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("guard")
     eng, summary["mxfp4_matmul"]["launches"], _ = serve_phase(
         "mxfp4", device, MXFP4, kernels, layers=MXFP4_LAYERS)
     decode_breakdown(eng, device, MXFP4)

@@ -21,11 +21,20 @@ Packed-stream conventions (shared with ``repro_torch.kernels.layout``):
     These are plain PyTorch on either device: elementwise ops, a max, and
     error sums in a fixed order (``m2xfp._sum_last``), so the bytes do not
     depend on how many tokens share a call.
+
+Packed-stream validation (``validate_packed``, ``validate_packed_tree``)
+checks a packed weight against what its encoder can emit and reports each
+problem in the reference's words. The port keeps the layers of a model as
+a list of per-layer dicts, where the reference stacks them on axis 0:
+``packed_leaves`` names each packed weight by the reference's key
+(``layers/attn/wq``) with its list of per-layer leaves, and a report's
+index tuple starts with the layer, as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+import math
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -41,7 +50,8 @@ from .scaling import e8m0_decode, e8m0_encode, shared_scale_exponent
 
 __all__ = [
     "Codec", "PackedTensor", "register_codec", "get_codec", "list_codecs",
-    "packed_codecs", "kv_codecs", "kernel_codecs",
+    "packed_codecs", "kv_codecs", "kernel_codecs", "packed_leaves",
+    "validate_packed", "validate_packed_tree",
 ]
 
 N_SUB = GROUP // SUBGROUP
@@ -60,6 +70,7 @@ class Codec:
     kv_encode: Optional[Callable] = None     # (..., hd) -> {name: u8}
     kv_decode: Optional[Callable] = None     # inverse -> bf16 (..., hd)
     kv_spec: Optional[Callable] = None       # (b, w, nkv, hd, device) -> page
+    scale_kind: str = "e8m0"                 # u8 scale stream's encoding
 
     @property
     def packed(self) -> bool:
@@ -125,6 +136,112 @@ class PackedTensor:
     def __repr__(self):
         return (f"PackedTensor(codec={self.codec!r}, shape={self.shape}, "
                 f"streams={list(self.streams)})")
+
+
+# ---------------------------------------------------------------------------
+# Packed-stream integrity validation
+# ---------------------------------------------------------------------------
+
+def packed_leaves(tree) -> dict:
+    """{reference key: (stacked, [leaf, ...])} for every PackedTensor of a
+    parameter dict, in the reference's flatten order (dict keys sorted at
+    every level). A weight under a list (``layers``) is stacked: its list
+    holds one leaf per layer, in layer order."""
+    out = {}
+
+    def walk(node, path, stacked):
+        if isinstance(node, PackedTensor):
+            out.setdefault("/".join(path), (stacked, []))[1].append(node)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (str(k),), stacked)
+        elif isinstance(node, list):
+            for item in node:
+                walk(item, path, True)
+    walk(tree, (), False)
+    return out
+
+
+def _unravel(flat: int, shape) -> tuple:
+    idx = []
+    for n in reversed(shape):
+        idx.append(flat % n)
+        flat //= n
+    return tuple(reversed(idx))
+
+
+def _bad_scale_stats(sc: torch.Tensor) -> torch.Tensor:
+    """(count, first flat index, byte there) of the E8M0 bytes outside
+    [1, 254], as one int64 tensor on ``sc``'s device (index 0 if none)."""
+    flat = sc.reshape(-1)
+    bad = (flat < 1) | (flat > 254)
+    first = torch.argmax(bad.to(torch.int32))       # the first maximum
+    return torch.stack([bad.sum(), first, flat[first].long()])
+
+
+def validate_packed(p: Union[PackedTensor, Sequence[PackedTensor]]) -> list:
+    """Integrity-check a packed tensor's streams against the encoder
+    invariants of its codec. Returns the problems in the reference's words
+    (empty list = valid). ``p`` may be the list of per-layer leaves of one
+    weight (``packed_leaves``): it is checked as the reference checks the
+    layer-stacked leaf, and an index tuple starts with the layer.
+
+    Checks: E8M0 scale bytes lie in [1, 254] (the encoders clamp exponents
+    to [-126, 127], so byte 0 is never emitted and byte 255, reserved,
+    decodes to inf: either means the stream was damaged after packing);
+    float streams are finite; the code stream holds two nibbles per
+    logical element. On CUDA tensors the reductions run on the card and one
+    small tensor per weight comes back to the host, never the streams."""
+    stacked = not isinstance(p, PackedTensor)
+    leaves = list(p) if stacked else [p]
+    first = leaves[0]
+    codec = get_codec(first.codec)
+    if not codec.packed:
+        return [f"codec {first.codec!r} has no packed path"]
+    problems = []
+    sc = first.streams.get("scales")
+    if sc is not None and sc.dtype == torch.uint8:
+        if codec.scale_kind != "e8m0":
+            raise NotImplementedError(
+                f"scale kind {codec.scale_kind!r}: only e8m0 scales are "
+                f"validated in the port")
+        stats = torch.stack([_bad_scale_stats(leaf.streams["scales"])
+                             for leaf in leaves]).cpu()   # (layers, 3)
+        total = int(stats[:, 0].sum())
+        if total:
+            layer = int(torch.nonzero(stats[:, 0])[0, 0])
+            idx = _unravel(int(stats[layer, 1]),
+                           leaves[layer].streams["scales"].shape)
+            idx = ((layer,) if stacked else ()) + idx
+            problems.append(
+                f"{total} scale byte(s) outside the legal "
+                f"{codec.scale_kind} range [1, 254] (first at index {idx}, "
+                f"byte {int(stats[layer, 2])})")
+    for name, s in first.streams.items():
+        if s.dtype.is_floating_point and bool(torch.stack(
+                [~torch.isfinite(leaf.streams[name].float()).all()
+                 for leaf in leaves]).any()):
+            problems.append(f"non-finite value in float stream {name!r}")
+    if "codes" in first.streams:
+        n_elems = math.prod(first.shape)
+        nibbles = 2 * sum(leaf.streams["codes"].numel() for leaf in leaves)
+        if n_elems and nibbles % n_elems != 0:
+            problems.append(
+                f"code stream holds {nibbles} nibbles, not a multiple of "
+                f"the {n_elems} logical elements of shape {first.shape}")
+    return problems
+
+
+def validate_packed_tree(tree) -> dict:
+    """:func:`validate_packed` over every packed weight of a parameter
+    dict. Returns {reference key: [problems]} for invalid weights only
+    (empty dict = every packed stream is intact)."""
+    report = {}
+    for key, (stacked, leaves) in packed_leaves(tree).items():
+        problems = validate_packed(leaves if stacked else leaves[0])
+        if problems:
+            report[key] = problems
+    return report
 
 
 def _decode_sgem(streams: dict, k: int, n: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Batched autoregressive serving engine over packed weights (port of
-repro.serve.engine without its guard, telemetry and weight verification).
+repro.serve.engine; its telemetry spans and metrics are not ported).
 
 The engine owns a packed parameter dict (``prequantize_params`` or
 ``load_packed_checkpoint``), per-slot KV caches (``init_caches``: batch row
@@ -13,6 +13,15 @@ token, and idle slots nothing (length 0, masked out of every cache write).
 Both launches give bit-identical logits per token. Admission resets only
 the slot's position track, which masks every stale KV entry, packed bytes
 included.
+
+The guard (``repro_torch.serve.guard``) is on by default: each launch also
+runs the poison sentinels on the device, and their per-slot counts come to
+the host in the same copy as the sampled logit rows. A slot whose logits or
+cache pages are poisoned is quarantined and scrubbed (its pages zeroed in
+every layer) while the other slots go on bit-identical; a launch that
+raises :class:`TransientStepError` before it runs is retried; requests may
+carry deadlines and the admission queue may be bounded. Nothing else is
+caught: a CUDA error propagates, and no step moves to the CPU.
 """
 from __future__ import annotations
 
@@ -23,10 +32,29 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.codecs import PackedTensor, packed_leaves, \
+    validate_packed
 from repro_torch.models.model import decode_step, init_caches, prefill_chunk
-from .scheduler import Request, SlotScheduler
+from . import guard as _guard
+from .guard import (EngineFailedError, EngineGuard, GuardConfig,
+                    TransientStepError)
+from .scheduler import AdmissionError, Request, SlotScheduler
 
-__all__ = ["ServeEngine", "ServeStats"]
+__all__ = ["ServeEngine", "ServeStats", "tree_nbytes"]
+
+
+def tree_nbytes(tree) -> int:
+    """Total bytes of every tensor in a nested dict / list / PackedTensor
+    (what the tree keeps resident)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.nbytes
+    if isinstance(tree, PackedTensor):
+        tree = tree.streams
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_nbytes(x) for x in tree)
+    return 0
 
 
 @dataclasses.dataclass
@@ -41,6 +69,14 @@ class ServeStats:
     wall_s: float = 0.0
     prefill_wall_s: float = 0.0    # wall attributed to prefill launches
     decode_wall_s: float = 0.0     # wall attributed to pure decode launches
+    quarantined: int = 0           # requests evicted for poisoned state
+    expired: int = 0               # requests past their deadline
+    shed: int = 0                  # requests rejected at admission
+
+    @property
+    def tokens_per_sec(self) -> float:
+        total = self.prefill_tokens + self.generated_tokens
+        return total / self.wall_s if self.wall_s > 0 else 0.0
 
     @property
     def prefill_tokens_per_sec(self) -> float:
@@ -61,10 +97,67 @@ class ServeStats:
             return 0.0
         return self.slot_steps / (self.steps * self.n_slots)
 
+    def to_dict(self) -> dict:
+        """Every field plus every derived property, as plain floats/ints."""
+        out = dataclasses.asdict(self)
+        out.update(
+            tokens_per_sec=self.tokens_per_sec,
+            prefill_tokens_per_sec=self.prefill_tokens_per_sec,
+            decode_tokens_per_sec=self.decode_tokens_per_sec,
+            occupancy=self.occupancy,
+        )
+        return out
+
 
 def _greedy(logits: np.ndarray) -> np.ndarray:
     """(B, V) -> (B,) argmax token ids (first maximum on ties)."""
     return np.argmax(logits, axis=-1).astype(np.int32)
+
+
+def _reset_slot(caches: dict, slot: int, scrub: bool = False) -> None:
+    """Put one slot's rows of every layer's cache back in their init state,
+    in place. An admit-time reset writes only the position track: -1 masks
+    every stale K/V entry. ``scrub=True`` (quarantine) also zeroes the
+    slot's bf16 pages or every packed stream: a poisoned page (NaN, scale
+    byte 255) would trip the KV sentinel every later step if left masked
+    but resident, and zero is every page stream's init state."""
+    for layer in caches["layers"]:
+        for name, leaf in layer.items():
+            if name == "pos":
+                leaf[slot] = -1
+            elif scrub:
+                for t in (leaf.values() if isinstance(leaf, dict)
+                          else (leaf,)):
+                    t[slot] = 0
+
+
+def _launches(cfg, n_slots: int, nan_checks: bool, kv_checks: bool):
+    """The engine's decode and prefill launches. Each runs the model on the
+    caches in place and returns (logits, {site: per-slot sentinel counts on
+    the device}), the counts of the checks that are on."""
+    def sentinels(rows, lengths, caches) -> dict:
+        out = {}
+        if nan_checks:
+            out["logits"] = _guard.probe_logits(rows, lengths)
+        if kv_checks:
+            out["kv"] = _guard.probe_kv(caches, n_slots)
+        return out
+
+    def decode(p, b, c, i):
+        logits = decode_step(p, cfg, b, c, i)
+        # decode rows always attend over >= 1 valid entry (the token just
+        # written), so no masking is needed
+        return logits, sentinels(logits[:, -1], None, c)
+
+    def prefill(p, b, c, i, lengths):
+        logits = prefill_chunk(p, cfg, b, c, i, lengths)
+        # probe only the row each slot samples from; idle rows (length 0)
+        # softmax over an all-masked window
+        rows = logits[torch.arange(logits.shape[0], device=logits.device),
+                      (lengths - 1).clamp_min(0)]
+        return logits, sentinels(rows, lengths, c)
+
+    return decode, prefill
 
 
 class ServeEngine:
@@ -79,13 +172,28 @@ class ServeEngine:
     prefill_chunk : max prompt tokens a slot consumes per step.
     prefill_budget : cap on prefill tokens per step across slots (None =
         unlimited); the oldest prefilling request always progresses.
+    guard : ``GuardConfig``; None (default) = guard on with default knobs
+        (sentinels, quarantine, retries, health state machine), ``False``
+        = guard off: the launches run the model alone.
+    max_queue : bound on the admission queue (None = unbounded); a full
+        queue sheds submissions with ``AdmissionError``.
+    default_ttl_steps : deadline in engine steps for every request that
+        carries no ``ttl_steps`` of its own (None = no deadline).
+    verify_weights : validate the packed streams at init and repair broken
+        weights (``guard.verify_packed_tree``).
+    source_params : optional dense parameter dict, for exact repair by
+        re-quantization.
     device : where the caches live; the parameters must be there too.
     """
 
     def __init__(self, params, cfg, n_slots: int = 8, max_len: int = 256,
                  sample_fn: Optional[Callable] = None,
                  prefill_chunk: int = 8,
-                 prefill_budget: Optional[int] = None, device="cuda"):
+                 prefill_budget: Optional[int] = None,
+                 guard=None, max_queue: Optional[int] = None,
+                 default_ttl_steps: Optional[int] = None,
+                 verify_weights: bool = False, source_params=None,
+                 device="cuda"):
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots
@@ -94,46 +202,115 @@ class ServeEngine:
         self.chunk = max(1, int(prefill_chunk))
         self.prefill_budget = prefill_budget
         self.device = torch.device(device)
-        self.scheduler = SlotScheduler(n_slots, max_prompt_len=max_len)
+        if guard is False:
+            gcfg = None
+        else:
+            gcfg = guard if isinstance(guard, GuardConfig) else GuardConfig()
+        self.guard: Optional[EngineGuard] = \
+            EngineGuard(gcfg) if gcfg is not None else None
+        self.default_ttl_steps = default_ttl_steps
+        self.source_params = source_params
+        self.scheduler = SlotScheduler(n_slots, max_queue=max_queue,
+                                       max_prompt_len=max_len)
         self.stats = ServeStats(n_slots=n_slots)
+
+        if verify_weights:
+            self.params, repairs = _guard.verify_packed_tree(
+                params, cfg=cfg, source_params=source_params)
+            # clamped weights decode degraded (bounded error): say so
+            if self.guard and any(mode == "clamp" for _, mode in repairs):
+                self.guard.degrade()
+
         self.caches = init_caches(cfg, n_slots, max_len, self.device)
         self._tokens = np.zeros((n_slots, 1), np.int64)   # last sampled
         self._index = np.zeros((n_slots,), np.int64)      # absolute position
 
+        # FaultInjector wraps these two attributes
+        self._step, self._prefill = _launches(
+            cfg, n_slots, bool(gcfg and gcfg.nan_checks),
+            bool(gcfg and gcfg.kv_checks))
+
     # -- request lifecycle -------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
-               eos_id: Optional[int] = None) -> Request:
-        """Queue a request; it is admitted when a slot frees up. Raises
-        ``ValueError`` on an empty prompt, a non-positive
-        ``max_new_tokens`` or prompt + generation beyond ``max_len``."""
+               eos_id: Optional[int] = None,
+               ttl_steps: Optional[int] = None) -> Request:
+        """Queue a request; it is admitted when a slot frees up.
+
+        Raises ``ValueError`` on an invalid request (empty prompt,
+        non-positive ``max_new_tokens``, prompt + generation beyond
+        ``max_len``), :class:`AdmissionError` when the queue is full
+        (counted as shed), :class:`EngineFailedError` once the engine's
+        fault budget is exhausted."""
+        if self.guard:
+            self.guard.check_alive()
         if prompt and len(prompt) + max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt+generation {len(prompt)}+{max_new_tokens} exceeds "
                 f"cache capacity {self.max_len}")
-        return self.scheduler.submit(list(prompt), max_new_tokens, eos_id,
-                                     step=self.stats.steps)
+        if ttl_steps is None:
+            ttl_steps = self.default_ttl_steps
+        try:
+            return self.scheduler.submit(
+                list(prompt), max_new_tokens, eos_id,
+                ttl_steps=ttl_steps, step=self.stats.steps)
+        except AdmissionError as e:
+            self.stats.shed += 1
+            if self.guard:
+                self.guard.record_shed(e.reason)
+            raise
 
     def _admit(self) -> None:
-        for req in self.scheduler.admit(self.stats.steps):
-            for cache in self.caches["layers"]:
-                cache["pos"][req.slot] = -1
+        admitted = self.scheduler.admit(self.stats.steps)
+        for req in admitted:
+            _reset_slot(self.caches, req.slot)
             self._index[req.slot] = 0
+        if admitted and self.guard and self.guard.maybe_verify_admit():
+            self._spot_check_weights()
+
+    def _spot_check_weights(self) -> None:
+        """verify_on_admit: validate one seeded pick of the packed weights
+        (all its layers); on damage, repair the whole dict (re-quantize
+        from source when available, else clamp) and degrade."""
+        weights = list(packed_leaves(self.params).values())
+        if not weights:
+            return
+        stacked, leaves = weights[int(self.guard._rng.integers(len(weights)))]
+        if not validate_packed(leaves if stacked else leaves[0]):
+            return
+        self.params, _ = _guard.verify_packed_tree(
+            self.params, cfg=self.cfg, source_params=self.source_params)
+        self.guard.degrade()
 
     # -- launches ----------------------------------------------------------
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _fetch(self, rows: torch.Tensor, counts: dict) -> np.ndarray:
+        """Copy the sampled rows (B, V) f32 and the sentinels' per-slot
+        counts to the host in one copy (one wait for the device), deliver
+        the counts to the guard's mailbox, return the rows."""
+        sites = list(counts)
+        if not sites:
+            return rows.float().cpu().numpy()
+        v = rows.shape[1]
+        host = torch.cat([rows.float().view(torch.int32)]
+                         + [counts[s].to(torch.int32)[:, None]
+                            for s in sites], dim=1).cpu().numpy()
+        for j, site in enumerate(sites):
+            self.guard.mailbox.deliver(site, host[:, v + j])
+        return np.ascontiguousarray(host[:, :v]).view(np.float32)
+
     def _launch_decode(self, chunks) -> np.ndarray:
         """One-token launch for every slot -> (B, V) f32 logits."""
         for slot, req in self.scheduler.active.items():
             if req.phase == "prefill":
                 self._tokens[slot, 0] = req.prompt[req.consumed]
-        logits = decode_step(self.params, self.cfg,
-                             {"tokens": self._to_device(self._tokens)},
-                             self.caches, self._to_device(self._index))
-        return logits[:, -1].cpu().numpy()
+        logits, counts = self._step(
+            self.params, {"tokens": self._to_device(self._tokens)},
+            self.caches, self._to_device(self._index))
+        return self._fetch(logits[:, -1], counts)
 
     def _launch_prefill(self, chunks) -> np.ndarray:
         """Mixed chunked launch -> (B, V) f32 logits at each slot's last
@@ -149,19 +326,98 @@ class ServeEngine:
                 toks[slot, :c] = req.prompt[req.consumed:req.consumed + c]
             else:
                 toks[slot, 0] = self._tokens[slot, 0]
-        logits = prefill_chunk(self.params, self.cfg,
-                               {"tokens": self._to_device(toks)},
-                               self.caches, self._to_device(self._index),
-                               self._to_device(lens))
+        logits, counts = self._prefill(
+            self.params, {"tokens": self._to_device(toks)}, self.caches,
+            self._to_device(self._index), self._to_device(lens))
         last = self._to_device(np.maximum(lens - 1, 0))
         rows = torch.arange(self.n_slots, device=self.device)
-        return logits[rows, last].cpu().numpy()
+        return self._fetch(logits[rows, last], counts)
 
     # -- the step loop -----------------------------------------------------
 
     def step(self) -> int:
         """Admit, plan per-slot chunks, run one launch, route tokens.
-        Returns the number of requests that finished this step."""
+        Returns the number of requests that finished this step.
+
+        Raises :class:`EngineFailedError` once the guard's fault budget is
+        exhausted (transient failures persisted past the retry budget, or
+        quarantines beyond ``max_quarantines``)."""
+        if self.guard:
+            self.guard.check_alive()
+        return self._step_inner()
+
+    def _guarded_launch(self, fn, chunks) -> np.ndarray:
+        """Run a launch with the guard's retry policy. Only
+        :class:`TransientStepError` is retried: it is raised before the
+        launch writes the caches, so running it again is safe. Anything
+        else (a CUDA error, a failed kernel build) propagates."""
+        if not self.guard:
+            return fn(chunks)
+        attempts = 0
+        while True:
+            try:
+                return fn(chunks)
+            except TransientStepError as e:
+                if attempts >= self.guard.cfg.max_step_retries:
+                    self.guard.fail(
+                        f"transient step failure persisted after "
+                        f"{attempts} retries: {e}")
+                    raise EngineFailedError(
+                        f"launch failed {attempts + 1} times "
+                        f"({e}); engine is FAILED") from e
+                self.guard.record_retry()
+                time.sleep(self.guard.cfg.retry_backoff_s * (2 ** attempts))
+                attempts += 1
+
+    def _expire_deadlines(self) -> None:
+        for req in self.scheduler.expire(self.stats.steps):
+            self.stats.expired += 1
+            if self.guard:
+                self.guard.record_expired(
+                    "running" if req.fail_reason == "deadline_running"
+                    else "queued")
+
+    def _contain_faults(self, chunks, rows: np.ndarray) -> None:
+        """Poisoned-slot containment, between launch and token routing.
+
+        Unions the sentinels' counts with a host-side non-finite scan of
+        the sampled rows, then for every flagged slot: quarantine its
+        request (if occupied), scrub its cache rows to the init state, and
+        mask it out of this step's routing. The other slots' rows are
+        untouched, so their tokens stay bit-identical to a fault-free
+        run."""
+        faults = self.guard.drain()
+        poisoned = {}                              # slot -> first bad site
+        kv = faults.get("kv")
+        if kv is not None:
+            for slot in np.nonzero(kv)[0]:
+                poisoned[int(slot)] = "kv"
+        lg = faults.get("logits")
+        if lg is not None:
+            for slot in np.nonzero(lg)[0]:
+                if chunks.get(int(slot), 0) > 0:
+                    poisoned.setdefault(int(slot), "logits")
+        # host-side check of the sampled rows (also covers a guard with the
+        # sentinels turned off)
+        for slot in np.nonzero(~np.isfinite(rows).all(axis=-1))[0]:
+            if chunks.get(int(slot), 0) > 0:
+                poisoned.setdefault(int(slot), "logits")
+        for slot, site in sorted(poisoned.items()):
+            occupied = slot in self.scheduler.active
+            _reset_slot(self.caches, slot, scrub=True)
+            self._index[slot] = 0
+            self._tokens[slot, 0] = 0
+            chunks[slot] = 0                       # no routing this step
+            if occupied:
+                self.scheduler.quarantine(slot, self.stats.steps,
+                                          reason=site)
+                self.stats.quarantined += 1
+                self.guard.record_quarantine(site)
+            else:
+                self.guard.record_scrub(site)
+
+    def _step_inner(self) -> int:
+        self._expire_deadlines()
         self._admit()
         if not self.scheduler.active:
             return 0
@@ -169,8 +425,11 @@ class ServeEngine:
         decode_only = all(c == 1 for c in chunks.values())
         t0 = time.perf_counter()
         launch = self._launch_decode if decode_only else self._launch_prefill
-        sampled = self.sample_fn(launch(chunks))   # host copy synchronizes
+        sampled_from = self._guarded_launch(launch, chunks)  # synchronizes
         dt = time.perf_counter() - t0
+        if self.guard:
+            self._contain_faults(chunks, sampled_from)
+        sampled = self.sample_fn(sampled_from)
 
         self.stats.steps += 1
         if decode_only:
@@ -204,6 +463,8 @@ class ServeEngine:
             if req.done:
                 self.scheduler.evict(slot, self.stats.steps)
                 finished += 1
+        if self.guard:
+            self.guard.note_step(dt)
         return finished
 
     def run(self) -> List[Request]:
@@ -225,8 +486,29 @@ class ServeEngine:
         self.run()
         return [r.output for r in reqs]
 
+    # -- accounting --------------------------------------------------------
+
+    @property
+    def health(self) -> str:
+        """Current health state ('healthy' when the guard is off)."""
+        return self.guard.state if self.guard else _guard.HEALTHY
+
+    def guard_summary(self) -> dict:
+        """Fault-accounting snapshot (state, quarantines, retries, ...);
+        empty dict when the guard is off."""
+        return self.guard.summary() if self.guard else {}
+
     def mean_ttft_steps(self) -> float:
-        """Mean engine steps from admission to first sampled token."""
+        """Mean engine steps from admission to first sampled token, over
+        every request that produced output."""
         ttfts = [r.ttft_steps for r in self.scheduler.finished
                  if r.ttft_steps >= 0]
+        ttfts += [r.ttft_steps for r in self.scheduler.active.values()
+                  if r.ttft_steps >= 0]
         return float(np.mean(ttfts)) if ttfts else 0.0
+
+    def weight_bytes(self) -> int:
+        return tree_nbytes(self.params)
+
+    def kv_bytes(self) -> int:
+        return tree_nbytes(self.caches)

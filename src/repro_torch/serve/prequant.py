@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.checkpoint import read_manifest, restore_state, save_state
 from repro_torch.convert import flat_leaves, from_flat_leaves, stack_layers
+from repro_torch.core.codecs import validate_packed_tree
 from repro_torch.models import model as _model
 
 __all__ = [
@@ -109,8 +110,11 @@ def load_packed_checkpoint(ckpt_dir: str, cfg, step: Optional[int] = None,
     ``verify``: per-leaf CRC-32 check against the manifest (format v3;
     older manifests restore unverified); a flipped byte raises
     :class:`repro_torch.checkpoint.CheckpointCorruptError` naming the leaf.
-    ``validate_streams`` (the codec's semantic stream checks) is not ported
-    yet and raises ``NotImplementedError``."""
+    ``validate_streams``: also run the codec's stream validation
+    (``repro_torch.core.codecs.validate_packed_tree``: E8M0 scale-byte
+    range etc.) on the restored dict and raise ``ValueError`` listing the
+    offending leaves -- it catches damage done *before* the checkpoint was
+    written, which passes the CRC."""
     extra = read_manifest(ckpt_dir, step).get("extra", {})
     tag = extra.get("format")
     if tag == _LEGACY_TAG:
@@ -133,12 +137,18 @@ def load_packed_checkpoint(ckpt_dir: str, cfg, step: Optional[int] = None,
             f"not interchangeable between codecs -- load with a matching "
             f"config (dataclasses.replace(cfg, quant_format={codec!r})) "
             f"or re-run prequantize_checkpoint with this one")
+    packed, manifest_extra = _restore(ckpt_dir, packed_template(cfg), cfg,
+                                      step, verify, device)
     if validate_streams:
-        raise NotImplementedError(
-            "validate_streams needs the codecs' stream validation, which "
-            "the torch port has not taken yet")
-    return _restore(ckpt_dir, packed_template(cfg), cfg, step, verify,
-                    device)
+        report = validate_packed_tree(packed)
+        if report:
+            detail = "; ".join(f"{k}: {'; '.join(v)}"
+                               for k, v in sorted(report.items()))
+            raise ValueError(
+                f"{ckpt_dir} restored but {len(report)} packed leaf(s) "
+                f"violate codec stream invariants ({detail}); re-run "
+                f"prequantize_checkpoint from source weights")
+    return packed, manifest_extra
 
 
 def prequantize_checkpoint(src_dir: str, dst_dir: str, cfg,

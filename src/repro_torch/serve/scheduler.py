@@ -1,9 +1,7 @@
 """Continuous-batching request scheduler (host-side, pure Python).
 
 A copy of ``repro.serve.scheduler``, kept in the port so that the port
-imports nothing of ``repro``. The port's engine uses admission, eviction
-and ``plan_chunks``; the deadline, queue-bound and quarantine states serve
-the reference's fault-tolerance layer, which the port has not taken yet.
+imports nothing of ``repro``.
 
 The serving engine holds a fixed number of *slots* — rows of the batched
 decode step and of the paged KV cache. Requests queue in FIFO order; a
@@ -12,7 +10,7 @@ Decode steps never stall on stragglers: a long request keeps its slot while
 short requests cycle through the others (continuous batching).
 
 Request-lifecycle hardening (the fault-tolerance layer, see
-``repro.serve.guard`` and docs/robustness.md):
+``repro_torch.serve.guard``):
 
   * ``submit`` validates requests up front — empty prompt, prompt longer
     than a cache page, non-positive ``max_new_tokens`` — and rejects with a

@@ -1,0 +1,12 @@
+"""Deterministic fault injection for the serving stack (port of
+repro.testing): the harness behind tests/test_torch_faults.py and
+chip_smoke.py's ``guard`` phase."""
+from .faults import (  # noqa: F401
+    FaultInjector, FaultPlan, chaos_plan, corrupt_checkpoint_leaf,
+    poison_kv_nan, poison_kv_scale, truncate_checkpoint,
+)
+
+__all__ = [
+    "FaultInjector", "FaultPlan", "chaos_plan", "corrupt_checkpoint_leaf",
+    "poison_kv_nan", "poison_kv_scale", "truncate_checkpoint",
+]

@@ -206,10 +206,14 @@ def test_old_manifests_restore_unverified(reference, tmp_path, version):
 
 
 def test_validate_streams_not_ported(reference):
+    """``validate_streams=True`` on an intact checkpoint restores what the
+    load without it restores (a damaged one: test_torch_faults.py)."""
     from repro_torch.serve.prequant import load_packed_checkpoint
-    with pytest.raises(NotImplementedError, match="validate_streams"):
-        load_packed_checkpoint(os.path.join(reference["root"], "m2xfp"),
-                               _cfg(), validate_streams=True, device="cpu")
+    path = os.path.join(reference["root"], "m2xfp")
+    got, _ = load_packed_checkpoint(path, _cfg(), validate_streams=True,
+                                    device="cpu")
+    _assert_same_tree(got, load_packed_checkpoint(path, _cfg(),
+                                                  device="cpu")[0])
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Tests of the port that need the card: the CUDA kernels against their
 plain versions (the two dequant-GEMMs, the quantize engine, the W4A4 GEMM
 and flash attention), the packed KV cache's encode and decode against the
-same calls on the CPU, the engine's launches, and chunked prefill against
-sequential decode at full width, with bf16 and packed KV caches. Each decides inside its body whether there
-is a CUDA device and skips without one. This file imports no JAX, so it also
-runs where only the port is installed:
+same calls on the CPU, the engine's launches, chunked prefill against
+sequential decode at full width, with bf16 and packed KV caches, and the
+serving guard (its sentinels and stream validation against the CPU, and
+quarantine with the survivors bit-identical). Each decides inside its body
+whether there is a CUDA device and skips without one. This file imports no
+JAX, so it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -512,3 +514,145 @@ def test_prefill_vs_decode_trace_names_a_planted_fault_on_cpu(monkeypatch):
     _, _, first, _ = _prefill_vs_decode(params, cfg, tokens,
                                         _serve_trace(monkeypatch))
     assert first is not None and first[0] == "layer 0 ffn_norm", first
+
+
+# ---------------------------------------------------------------------------
+# The serving guard on the card
+# ---------------------------------------------------------------------------
+
+def _to_cpu(tree):
+    from repro_torch.core.codecs import PackedTensor
+    if isinstance(tree, PackedTensor):
+        return PackedTensor({s: t.cpu() for s, t in tree.streams.items()},
+                            tree.shape, tree.codec)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["none", "m2xfp"])
+def test_cuda_probes_equal_cpu(kv_quant):
+    """probe_kv and probe_logits on the card count what they count on the
+    CPU: full-width paper-llama2-7b caches (2 layers, 8 slots x 512
+    positions) with NaNs or 255 scale bytes planted at random entries of
+    random slots (packed codes and meta bytes random, so all legal), and
+    (8, 32000) logits with non-finite entries, idle rows masked."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.guard import probe_kv, probe_logits
+    cfg = get_config("paper-llama2-7b", quant="serve", kv_quant=kv_quant,
+                     n_layers=2)
+    gen = torch.Generator("cuda").manual_seed(5)
+    caches = init_caches(cfg, 8, 512, "cuda")
+    for layer in caches["layers"]:
+        for name in ("k", "v"):
+            page = layer[name]
+            for s, t in (page.items() if isinstance(page, dict)
+                         else [("", page)]):
+                if t.dtype == torch.bfloat16:
+                    t.copy_(torch.randn(t.shape, generator=gen,
+                                        device="cuda"))
+                    bad = torch.rand(t.shape, generator=gen,
+                                     device="cuda") < 1e-6
+                    t[bad] = float("nan")
+                else:
+                    hi = 255 if s == "scales" else 256
+                    t.copy_(torch.randint(0, hi, t.shape, generator=gen,
+                                          device="cuda", dtype=torch.uint8))
+                    if s == "scales":
+                        t[torch.rand(t.shape, generator=gen,
+                                     device="cuda") < 1e-5] = 255
+    got = probe_kv(caches, 8)
+    assert got.device.type == "cuda" and int(got.sum()) > 0
+    assert torch.equal(got.cpu(), probe_kv(_to_cpu(caches), 8))
+    logits = torch.randn(8, 32000, generator=gen, device="cuda")
+    logits[1, ::7] = float("nan")
+    logits[4, 3] = float("inf")
+    logits[6, 5] = -float("inf")
+    lengths = torch.tensor([1, 1, 0, 1, 3, 1, 0, 1], device="cuda")
+    for ln in (None, lengths):
+        want = probe_logits(logits.cpu(), None if ln is None else ln.cpu())
+        assert torch.equal(probe_logits(logits, ln).cpu(), want)
+    assert probe_logits(logits, lengths).tolist() == \
+        [0, 4572, 0, 0, 1, 0, 0, 0]
+
+
+@pytest.mark.gpu
+def test_cuda_validate_packed_tree_equals_cpu():
+    """validate_packed_tree on full-width packed weights on the card (2
+    layers) gives the CPU's report: intact, then with scale bytes 0 and 255
+    planted in three weights and two layers."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.core.codecs import validate_packed_tree
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = get_config("paper-llama2-7b", quant="serve", n_layers=2)
+    params = init_packed_params(torch.Generator("cuda").manual_seed(0), cfg,
+                                "cuda")
+    assert validate_packed_tree(params) == {}
+    for layer, key, at, byte in ((1, ("attn", "wq"), (3, 100), 255),
+                                 (1, ("attn", "wq"), (40, 7), 0),
+                                 (0, ("ffn", "down"), (343, 4095), 255),
+                                 (1, ("ffn", "up"), (0, 0), 0)):
+        params["layers"][layer][key[0]][key[1]].streams["scales"][at] = byte
+    got = validate_packed_tree(params)
+    assert got == validate_packed_tree(_to_cpu(params))
+    assert got["layers/attn/wq"] == [
+        "2 scale byte(s) outside the legal e8m0 range [1, 254] (first at "
+        "index (1, 3, 100), byte 255)"]
+    assert sorted(got) == ["layers/attn/wq", "layers/ffn/down",
+                           "layers/ffn/up"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["none", "m2xfp"])
+def test_cuda_quarantine_keeps_survivors_bit_identical(kv_quant):
+    """Full-width paper-llama2-7b at 2 layers on the card, 6 requests in 4
+    slots: the guard (on by default) changes no token against guard=False;
+    under a KV poison and a NaN logit row exactly the planned slots'
+    requests are quarantined, every other request (one of them served in a
+    scrubbed slot) keeps its fault-free tokens, and a transient failure is
+    retried without losing a token."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.prequant import init_packed_params
+    from repro_torch.testing import FaultInjector, FaultPlan
+    cfg = get_config("paper-llama2-7b", quant="serve", kv_quant=kv_quant,
+                     n_layers=2)
+    params = init_packed_params(torch.Generator("cuda").manual_seed(0), cfg,
+                                "cuda")
+    rng = np.random.default_rng(2)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in (9, 12, 8, 10, 7, 11)]
+
+    def run(plan=None, **kw):
+        eng = ServeEngine(params, cfg, n_slots=4, max_len=64,
+                          prefill_chunk=8, device="cuda", **kw)
+        reqs = [eng.submit(p, 8) for p in prompts]
+        if plan is None:
+            eng.run()
+        else:
+            with FaultInjector(eng, plan):
+                eng.run()
+        return eng, reqs
+
+    _, clean = run()
+    _, off = run(guard=False)
+    assert [r.output for r in off] == [r.output for r in clean]
+    # steps 3 and 4 are decode steps of requests 0-3 (prefill: 2 steps)
+    eng, reqs = run(FaultPlan(seed=1, kv_poison_steps=((3, 1),),
+                              nan_logit_steps=((4, 2),), fail_steps=(5,)))
+    assert [r.state for r in reqs] == ["finished", "quarantined",
+                                       "quarantined", "finished",
+                                       "finished", "finished"]
+    assert [reqs[i].fail_reason for i in (1, 2)] == ["kv", "logits"]
+    for i in (0, 3, 4, 5):
+        assert reqs[i].output == clean[i].output, i
+    summary = eng.guard_summary()
+    assert (summary["quarantines"], summary["retries"],
+            summary["scrubs"]) == (2, 1, 0)
