@@ -38,7 +38,7 @@ printing JSON lines:
                  off (guard_wall_ms_delta, guard_device_ms_delta)
   4. serve    -- the same traffic with an m2xfp-packed KV cache
                  (kv_quant="m2xfp", paper Sec. 6.4; the main path's step 5)
-                 on the first 16 of the same layers (PACKED_KV_LAYERS): the
+                 on the first 8 of the same layers (PACKED_KV_LAYERS): the
                  same assertions, and beside them the packed pages' bytes
                  against phase 3's pages at the same depth; then its
                  decode step split as in phase 3
@@ -55,8 +55,27 @@ printing JSON lines:
                  RECOVERY_STEPS; then packed-stream validation of the
                  weights (validate_ms) and a planted scale byte 255
                  reported and repaired by clamp
-  6. serve    -- phase 3 with the mxfp4 codec, at 16 layers (MXFP4_LAYERS)
-  7. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
+  6. codecs   -- the paper's codec matrix (m2xfp, m2xfp_ideal6, m2nvfp4,
+                 mxfp4, nvfp4, smx4, fp4) on the card against the same calls
+                 on the CPU, bit for bit: every codec's fake_quant_act on
+                 heavy-tailed (8, 4096) and (64, 11008) activations and
+                 fake_quant_weight on a (4096, 512) column slice of a
+                 full-width projection; the five scale rules (exponents at
+                 the edges where a log2 is rounded, MXFP4 and m2xfp
+                 fake-quant); pack_w_nvfp4's codes, E4M3 scale bytes and
+                 tensor scale on a full (4096, 11008) weight. Then serving
+                 on the first CODEC_LAYERS layers: m2xfp_ideal6 on phase
+                 3's m2xfp weights re-tagged (its packed weights are
+                 m2xfp's bytes, checked on one projection), through kernel
+                 #1 (7 launches per layer per engine launch, chunked
+                 prefill bit-identical to decode), and nvfp4 packed on the
+                 card from SEED, which launches no dequant-GEMM (decode in
+                 f32, then an f32 GEMM); its agreement with chunks of 1 is
+                 printed, not asserted (per-tensor activation scales depend
+                 on which tokens share a launch), beside its decode step's
+                 device time and its weights' bytes
+  7. serve    -- phase 3 with the mxfp4 codec, at 16 layers (MXFP4_LAYERS)
+  8. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
                  the quantize engine on a 4097-point sweep of [-8, 8] (every
                  FP4 and FP6 code, midpoint and saturation) and the W4A4 GEMM
                  against an identity weight on random X streams (every
@@ -65,7 +84,7 @@ printing JSON lines:
                  (identity x on random streams: every code, meta field and
                  scale byte 0-250, subnormal weights included) equal to the
                  plain decoders
-  8. w4a4     -- the W4A4 datapath (quantize engine, then the fully packed
+  9. w4a4     -- the W4A4 datapath (quantize engine, then the fully packed
                  GEMM) through ``repro_torch.kernels`` for the seven
                  projections of one full-width paper-llama2-7b layer at M in
                  {1, 8, 64, 129, 2048}: streams byte-identical to the plain
@@ -76,7 +95,7 @@ printing JSON lines:
                  operand), rows bit-identical across M, a planted
                  activation-meta fault flagged at every shape, and times
                  beside bound, plain and library
-  9. flash    -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
+  10. flash   -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
                  layer's prefill): causal at S = 512 and 2048, S = 2048 with
                  a 512 window, with softcap 50 on q scaled by 8 (so scores
                  reach the cap), and with the last 64 keys invalid and a
@@ -123,16 +142,23 @@ N_SLOTS, MAX_LEN = 8, 512
 # depth on NVIDIA H100 80GB HBM3, 700.00 W).
 MXFP4_LAYERS = 16
 # The packed-KV serve phase (an earlier path since the guard phase came)
-# runs at half depth too: with it at full depth and the guard phase the
-# script took 1170 s of its 1200 s limit (packed-KV phase 540 s, guard phase
-# 233 s; NVIDIA H100 80GB HBM3, 700.00 W). Its first 16 layers are the
-# full-depth weights' first 16.
-PACKED_KV_LAYERS = 16
+# runs at a quarter of the depth: with it at full depth and the guard phase
+# the script took 1170 s of its 1200 s limit (packed-KV phase 540 s, guard
+# phase 233 s), and at 16 layers beside the codecs phase 1085.9 s on a slow
+# host (packed-KV phase 283.6 s; NVIDIA H100 80GB HBM3, 700.00 W). Its
+# first 8 layers are the full-depth weights' first 8.
+PACKED_KV_LAYERS = 8
 # Guard phase traffic: 12 requests (more than the 8 slots, so a quarantined
 # slot is reused), prompts drawn by SEED from 16..64 tokens, GUARD_TOKENS new
 # tokens each, on the m2xfp weights of the serve phase at full depth.
 GUARD_REQUESTS, GUARD_TOKENS, GUARD_PROMPTS = 12, 16, (16, 64)
 RECOVERY_STEPS = 3                  # GuardConfig's default
+# Codecs phase: the first CODEC_LAYERS layers; 8 requests (as many as the
+# slots), prompts drawn by SEED from 16..64 tokens, 16 new tokens each.
+CODEC_LAYERS = 8
+CODEC_TRAFFIC = (8, 16, (16, 64))           # requests, new tokens, prompts
+CODEC_ACTS = [(8, 4096), (64, 11008)]
+CODEC_WEIGHT_COLS = 512     # the CPU side of the Sg-EM search is slow at N
 # Kernel vs plain: |diff| <= sqrt(K) * 2^-24 * (|x| @ |Wdec|). Every product
 # is exact in f32 and the plain version rounds once, so the kernel's error
 # is its K f32 roundings, which add as a random walk: sqrt(K) * 2^-24 of the
@@ -334,22 +360,29 @@ def kv_cache_bytes(caches) -> int:
 
 
 def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
-                layers=LAYERS, bf16_kv=None, params=None):
-    """Serve REQUESTS requests through the port's engine (its guard on, as
+                layers=LAYERS, bf16_kv=None, params=None,
+                traffic=(REQUESTS, TOKENS, (16, 128))):
+    """Serve ``traffic`` (requests, new tokens each, prompt lengths drawn
+    by SEED from the range) through the port's engine (its guard on, as
     by default), with a bf16 KV cache or one packed in ``kv_quant``. Every
     launch counter is zeroed just before the run and read just after;
     ``kern`` must have run 7 times per layer per engine launch and every
-    other kernel not at all, and the guard must have stayed healthy with
-    nothing quarantined, scrubbed or retried. ``bf16_kv``: the bf16-KV
-    phase's result with the same weights, which a packed-KV phase prints
-    beside its own. ``params``: weights an earlier phase packed from SEED
-    (else packed here). Returns (engine, launches of ``kern``, the phase's
-    result: tokens, peak and cache bytes)."""
+    other kernel not at all (``kern`` None: no kernel at all), and the
+    guard must have stayed healthy with nothing quarantined, scrubbed or
+    retried. The same traffic served with prefill chunks of 1 must give the
+    same tokens where the codec's activation quantization is
+    batch-invariant (else the agreement is printed only). ``bf16_kv``: the
+    bf16-KV phase's result with the same weights, which a packed-KV phase
+    prints beside its own. ``params``: weights an earlier phase packed from
+    SEED (else packed here). Returns (engine, launches of ``kern``, the
+    phase's result: tokens, peak and cache bytes)."""
     from repro_torch.configs import get_config
+    from repro_torch.core.codecs import get_codec
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.prequant import init_packed_params
     cfg = get_config("paper-llama2-7b", quant="serve", quant_format=codec,
                      kv_quant=kv_quant, n_layers=layers)
+    n_requests, n_tokens, (lo, hi) = traffic
     pack_s = None
     if params is None:
         t0 = time.perf_counter()
@@ -359,7 +392,7 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
         pack_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
-               for n in rng.choice(np.arange(16, 129), REQUESTS)]
+               for n in rng.choice(np.arange(lo, hi + 1), n_requests)]
 
     def finite_greedy(logits):
         if not np.isfinite(logits).all():
@@ -370,7 +403,7 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
         eng = ServeEngine(params, cfg, n_slots=N_SLOTS, max_len=MAX_LEN,
                           prefill_chunk=chunk, sample_fn=finite_greedy,
                           device=device)
-        outs = eng.generate(prompts, TOKENS)
+        outs = eng.generate(prompts, n_tokens)
         torch.cuda.synchronize()
         g = eng.guard_summary()
         if g["state"] != "healthy" or g["quarantines"] or g["scrubs"] \
@@ -382,24 +415,26 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
     for k in kernels:                     # the path's counts start here
         k.launches = 0
     eng, outs = run(CHUNK)
-    launches = kern.launches
+    launches = kern.launches if kern is not None else 0
     others = {k.name: k.launches for k in kernels if k is not kern}
     if any(others.values()):
         raise AssertionError(f"{codec} path launched {others}")
-    if launches != 7 * layers * eng.stats.steps:
+    expected = 7 * layers * eng.stats.steps if kern is not None else 0
+    if launches != expected:
         raise AssertionError(
             f"{codec}: {launches} kernel launches, expected 7 x {layers} "
             f"layers x {eng.stats.steps} engine launches")
     if len(eng.scheduler.finished) != len(prompts) or any(
-            len(o) != TOKENS for o in outs):
+            len(o) != n_tokens for o in outs):
         raise AssertionError(f"{codec}: not every request completed")
     peak = torch.cuda.max_memory_allocated()
     _, outs1 = run(1)
     same = sum(a == b for o, o1 in zip(outs, outs1) for a, b in zip(o, o1))
-    if same != len(prompts) * TOKENS:
+    batch_invariant = get_codec(codec).act_batch_invariant
+    if batch_invariant and same != len(prompts) * n_tokens:
         raise AssertionError(
             f"{codec}: prefill chunks of {CHUNK} and of 1 gave different "
-            f"tokens ({same} of {len(prompts) * TOKENS} agree)")
+            f"tokens ({same} of {len(prompts) * n_tokens} agree)")
     st = eng.stats
     result = dict(outs=outs, peak_memory_bytes=peak, layers=layers,
                   kv_cache_bytes=kv_cache_bytes(eng.caches))
@@ -416,7 +451,7 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
             vs_bf16.update(
                 bf16_kv_peak_memory_bytes=bf16_kv["peak_memory_bytes"],
                 peak_memory_saved_bytes=bf16_kv["peak_memory_bytes"] - peak,
-                token_agreement_vs_bf16_kv=agree / (len(prompts) * TOKENS))
+                token_agreement_vs_bf16_kv=agree / (len(prompts) * n_tokens))
     emit("serve", codec=codec, kv_quant=kv_quant, model=cfg.name,
          layers=layers,
          d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
@@ -432,9 +467,10 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
          peak_memory_bytes=peak, kv_cache_bytes=result["kv_cache_bytes"],
          **vs_bf16,
          init_and_pack_s=pack_s, guard=eng.guard_summary(),
-         kernel=kern.name, launches=launches,
-         launches_expected=7 * layers * st.steps,
-         token_agreement_vs_chunk1=same / (len(prompts) * TOKENS))
+         kernel=kern.name if kern is not None else None, launches=launches,
+         launches_expected=expected,
+         token_agreement_vs_chunk1=same / (len(prompts) * n_tokens),
+         token_agreement_asserted=batch_invariant)
     return eng, launches, result
 
 
@@ -463,11 +499,15 @@ def decode_breakdown(eng, device, kern, steps: int = 3):
     device time above either run's wall means events were counted twice,
     and raises. The packed GEMM's time is that of every kernel whose name
     carries "dequant_gemm"; gemm_kernel_names checks first that ``kern``'s
-    library holds no other."""
+    library holds no other. ``kern`` None (a codec served through its
+    decode): every kernel whose name carries "gemm"."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.model import decode_step
     b = eng.n_slots
-    names = gemm_kernel_names(kern)
+    # a codec without a kernel (nvfp4) multiplies with cuBLAS: its GEMM
+    # time is that of every kernel named "gemm" (the LM head's included)
+    names = gemm_kernel_names(kern) if kern is not None else []
+    tag = "dequant_gemm" if kern is not None else "gemm"
     tokens = torch.zeros((b, 1), dtype=torch.long, device=device)
     index = torch.full((b,), 128, dtype=torch.long, device=device)
 
@@ -492,7 +532,7 @@ def decode_breakdown(eng, device, kern, steps: int = 3):
             by_name[ev.key] = (by_name.get(ev.key, 0.0)
                                + ev.self_device_time_total / 1e3 / steps)
     total = sum(by_name.values())
-    gemm = sum(v for k, v in by_name.items() if "dequant_gemm" in k)
+    gemm = sum(v for k, v in by_name.items() if tag in k.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     idle = 1 - total / (wall * 1e3)
     if idle < 0 or total > wall_profiled * 1e3:
@@ -502,7 +542,7 @@ def decode_breakdown(eng, device, kern, steps: int = 3):
     emit("decode_breakdown", codec=eng.cfg.quant_format,
          kv_quant=eng.cfg.kv_quant, layers=eng.cfg.n_layers, slots=b,
          wall_ms=wall * 1e3, profiled_wall_ms=wall_profiled * 1e3,
-         device_ms=total, packed_gemm_ms=gemm,
+         device_ms=total, packed_gemm_ms=gemm, gemm_name_filter=tag,
          other_device_ms=total - gemm, device_idle_share=idle,
          gemm_kernel_names=names,
          top_kernels_ms={k[:80]: v for k, v in top},
@@ -779,6 +819,184 @@ def guard_phase(params, device, kern, kernels) -> int:
         raise AssertionError("guard: the planted weight byte was not "
                              "reported or repaired as expected")
     return total_launches
+
+
+def _heavy_tailed(rng, shape, ch_sigma=0.8) -> np.ndarray:
+    """LLM-like tensor: student-t entries with per-channel log-normal
+    scales (the CPU tests' ``heavy_tailed``)."""
+    t = rng.standard_t(df=4.0, size=shape).astype(np.float32)
+    ch = np.exp(ch_sigma * rng.standard_normal((1, shape[-1])))
+    return t * ch.astype(np.float32)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape and bytes (a on any device, b on the CPU)."""
+    a = a.detach().cpu().contiguous()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _log2_edges() -> np.ndarray:
+    """Group maxima where a rounded log2 flips: b sqrt(2) 2^k and b 2^k for
+    b in {3, 4, 6}, k in -110..110, with their nextafter neighbours."""
+    ks = np.arange(-110, 111, dtype=np.float64)
+    c = np.concatenate([np.float32(b * f * 2 ** ks) for b in (3.0, 4.0, 6.0)
+                        for f in (1.0, 2 ** 0.5)])
+    return np.concatenate([c, np.nextafter(c, np.float32(np.inf)),
+                           np.nextafter(c, np.float32(0))]).astype(np.float32)
+
+
+def codec_bit_identity(gen, device):
+    """Every codec's fake-quant, the scale rules and pack_w_nvfp4 on the
+    card against the same calls on the CPU, bit for bit. Returns the
+    full-width dense projection (4096, 11008) bf16 it drew."""
+    from repro_torch.core.codecs import list_codecs
+    from repro_torch.core.formats import quantize_mxfp4, quantize_smx4
+    from repro_torch.core.m2xfp import quantize_act_m2xfp
+    from repro_torch.core.scaling import SCALE_RULES, shared_scale_exponent
+    from repro_torch.kernels.layout import pack_w_nvfp4
+    from repro_torch.models.quant import (fake_quant_act, fake_quant_weight,
+                                          init_linear)
+    rng = np.random.default_rng(SEED)
+    acts = [torch.from_numpy(_heavy_tailed(rng, shape, ch_sigma=2.0))
+            for shape in CODEC_ACTS]
+    w = init_linear(gen, 4096, 11008, device)
+    w_slice = w[:, :CODEC_WEIGHT_COLS].float()
+    w_slice_cpu = w_slice.cpu()
+    for name in list_codecs():
+        t0 = time.perf_counter()
+        act_equal = [_same_bits(fake_quant_act(x.to(device), name),
+                                fake_quant_act(x, name)) for x in acts]
+        weight_equal = _same_bits(fake_quant_weight(w_slice, name),
+                                  fake_quant_weight(w_slice_cpu, name))
+        emit("codecs", check="bit_identity", codec=name,
+             act_shapes=CODEC_ACTS, act_equal=act_equal,
+             weight_shape=[4096, CODEC_WEIGHT_COLS],
+             weight_equal=weight_equal,
+             seconds=time.perf_counter() - t0)
+        if not (all(act_equal) and weight_equal):
+            raise AssertionError(f"{name}: fake-quant on the card differs "
+                                 f"from the CPU's")
+    edges = torch.from_numpy(_log2_edges())
+    x = acts[1]
+    groups = torch.zeros(edges.numel(), 16)
+    groups[:, 0], groups[:, 2] = edges, edges / 3
+    smx4_equal = _same_bits(quantize_smx4(groups.to(device)),
+                            quantize_smx4(groups))
+    for rule in SCALE_RULES:
+        checks = dict(
+            edge_exponents=_same_bits(
+                shared_scale_exponent(edges.to(device), rule),
+                shared_scale_exponent(edges, rule)),
+            mxfp4=_same_bits(quantize_mxfp4(x.to(device), rule=rule),
+                             quantize_mxfp4(x, rule=rule)),
+            act_m2xfp=_same_bits(quantize_act_m2xfp(x.to(device), rule=rule),
+                                 quantize_act_m2xfp(x, rule=rule)))
+        emit("codecs", check="scale_rule", rule=rule,
+             edge_points=edges.numel(), act_shape=list(x.shape), **checks)
+        if not all(checks.values()):
+            raise AssertionError(f"scale rule {rule}: {checks}")
+    emit("codecs", check="smx4_log2_edges", edge_points=edges.numel(),
+         equal=smx4_equal)
+    if not smx4_equal:
+        raise AssertionError("smx4 at the log2 edges differs on the card")
+    t0 = time.perf_counter()
+    got = pack_w_nvfp4(w.float())
+    want = pack_w_nvfp4(w.float().cpu())
+    equal = {k: _same_bits(got[k], want[k]) for k in want}
+    emit("codecs", check="pack_w_nvfp4", shape=list(w.shape),
+         streams={k: [list(v.shape), str(v.dtype)] for k, v in want.items()},
+         equal=equal, tscale=float(want["tscale"]),
+         seconds=time.perf_counter() - t0)
+    if not all(equal.values()):
+        raise AssertionError(f"pack_w_nvfp4 on the card: {equal}")
+    return w
+
+
+def _retag(params: dict, codec: str, layers: int) -> dict:
+    """The first ``layers`` layers of ``params`` with every packed weight's
+    codec tag set to ``codec`` (the same stream tensors)."""
+    from repro_torch.core.codecs import PackedTensor
+
+    def tag(node):
+        if isinstance(node, PackedTensor):
+            return PackedTensor(node.streams, node.shape, codec)
+        if isinstance(node, dict):
+            return {k: tag(v) for k, v in node.items()}
+        return node
+    return dict(params, layers=[tag(lp) for lp in params["layers"][:layers]])
+
+
+def _packed_bytes(params: dict) -> int:
+    from repro_torch.core.codecs import PackedTensor
+    total = 0
+    for lp in params["layers"]:
+        for part in lp.values():
+            if isinstance(part, dict):
+                total += sum(t.nbytes for p in part.values()
+                             if isinstance(p, PackedTensor)
+                             for t in p.streams.values())
+    return total
+
+
+def nvfp4_layer_cost(timer, params: dict, m: int) -> dict:
+    """Device ms of one layer's nvfp4 serve GEMMs at M rows, split into the
+    decode of the seven packed weights to f32 and the seven f32 GEMMs
+    (CUDA events, L2 flushed before each)."""
+    from repro_torch.models.numerics import dot_f32acc
+    from repro_torch.models.quant import decode_serving_weight
+    lp = params["layers"][0]
+    weights = [lp[part][name] for part, names in (
+        ("attn", ("wq", "wk", "wv", "wo")), ("ffn", ("gate", "up", "down")))
+        for name in names]
+    decoded = [decode_serving_weight(p) for p in weights]
+    xs = [torch.randn(m, p.shape[0], device=decoded[0].device).to(
+        torch.bfloat16).float() for p in weights]
+    decode_ms = timer(lambda: [decode_serving_weight(p) for p in weights])
+    gemm_ms = timer(lambda: [dot_f32acc(x, wd)
+                             for x, wd in zip(xs, decoded)])
+    return dict(rows=m, decode_ms_per_layer=decode_ms,
+                f32_gemm_ms_per_layer=gemm_ms)
+
+
+def codecs_phase(params, timer, gen, device, kern, kernels) -> int:
+    """Bit identity of the codec matrix, card against CPU; then serving
+    m2xfp_ideal6 (``params``: phase 3's m2xfp weights, re-tagged) through
+    ``kern`` and nvfp4 (packed here from SEED) through its decode, on the
+    first CODEC_LAYERS layers. Returns the m2xfp_ideal6 run's launches of
+    ``kern``."""
+    from repro_torch.models.quant import pack_serving_weight
+    t0 = time.perf_counter()
+    w = codec_bit_identity(gen, device)
+    lap_s = time.perf_counter() - t0
+    a = pack_serving_weight(w, "m2xfp")
+    b = pack_serving_weight(w, "m2xfp_ideal6")
+    same = {k: torch.equal(a.streams[k], b.streams[k]) for k in a.streams}
+    emit("codecs", check="ideal6_weights_are_m2xfp_bytes",
+         shape=list(w.shape), equal=same)
+    if not all(same.values()) or sorted(a.streams) != sorted(b.streams):
+        raise AssertionError(f"m2xfp_ideal6 packs other bytes: {same}")
+    del w, a, b
+    ideal = _retag(params, "m2xfp_ideal6", CODEC_LAYERS)
+    eng, launches, _ = serve_phase(
+        "m2xfp_ideal6", device, kern, kernels, layers=CODEC_LAYERS,
+        params=ideal, traffic=CODEC_TRAFFIC)
+    decode_breakdown(eng, device, kern)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, _, _ = serve_phase("nvfp4", device, None, kernels,
+                            layers=CODEC_LAYERS, traffic=CODEC_TRAFFIC)
+    decode_breakdown(eng, device, None)
+    emit("codecs", check="nvfp4_weights", layers=CODEC_LAYERS,
+         packed_weight_bytes=_packed_bytes(eng.params),
+         m2xfp_packed_weight_bytes_same_depth=_packed_bytes(ideal),
+         **nvfp4_layer_cost(timer, eng.params, N_SLOTS),
+         bit_identity_s=lap_s)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def bitmath_phase(gen, device):
@@ -1210,12 +1428,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("serve_m2xfp_kv_m2xfp")
     guard_launches = guard_phase(params, device, M2XFP, kernels)
-    summary["m2xfp_matmul"]["launches"] = (launches + kv_launches
-                                           + guard_launches)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     lap("guard")
+    ideal_launches = codecs_phase(params, timer, gen, device, M2XFP,
+                                  kernels)
+    summary["m2xfp_matmul"]["launches"] = (launches + kv_launches
+                                           + guard_launches + ideal_launches)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("codecs")
     eng, summary["mxfp4_matmul"]["launches"], _ = serve_phase(
         "mxfp4", device, MXFP4, kernels, layers=MXFP4_LAYERS)
     decode_breakdown(eng, device, MXFP4)

@@ -1,2 +1,3 @@
-"""Format cores of the port: grids, E8M0 scales, M2XFP and MXFP4
-encoders, and the codec registry."""
+"""Format cores of the port: grids, E8M0 and E4M3 scales, the MX-family
+formats (MXFP4, NVFP4, SMX4, FP4), the M2XFP and M2-NVFP4 encoders, EBW
+accounting and the codec registry."""

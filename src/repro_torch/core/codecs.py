@@ -1,20 +1,26 @@
 """Codec registry and packed container (port of repro.core.codecs).
 
-One :class:`Codec` record per format, looked up by name, carries what the
-serve path needs: the activation fake-quant, the packed weight encoder and
-its exact decoder, the fused dequant-GEMM, and the packed KV cache's
-encode, decode and zero page. The slice registers the paper's format
-``m2xfp`` and its baseline ``mxfp4``; asking for a path a codec lacks
-raises a ``ValueError`` naming the codecs that have it.
+One :class:`Codec` record per format, looked up by name, carries the
+paper's format matrix (Tbl. 2/3/4/6): the weight and activation
+fake-quant of every format, and, where a format has them, the packed
+weight encoder and its exact decoder, the fused dequant-GEMM, and the packed
+KV cache's encode, decode and zero page. The registry holds the reference's
+seven codecs: m2xfp, its Tbl. 4 ablation m2xfp_ideal6, m2nvfp4, mxfp4,
+nvfp4, smx4 and fp4. Asking for a path a codec lacks raises a
+``ValueError`` naming the codecs that have it.
 
 Packed-stream conventions (shared with ``repro_torch.kernels.layout``):
 
-  * ``encode(w)``: (K, N) -> dict of 2-D u8 streams, groups along K,
-    nibbles group-half interleaved (K % 32 == 0) -- the reference's bytes;
-  * ``decode(streams, k, n)``: exact inverse to f32 (K, N);
-  * ``decode_dtype``: bf16 -- every decoded E8M0-scaled value fits it;
+  * ``encode(w)``: (K, N) -> dict of 2-D streams, groups along K, nibbles
+    group-half interleaved (K % 32 == 0) -- the reference's bytes; a
+    per-tensor scalar (nvfp4's ``tscale``) is an f32 (1, 1);
+  * ``decode(streams, k, n)``: exact inverse to f32 (K, N), bit-identical
+    to the codec's ``fake_quant_weight`` of the original tensor;
+  * ``decode_dtype``: the narrowest dtype the decode is exact in: bf16 for
+    the E8M0-scaled codecs, f32 for nvfp4 (its tensor scale is any f32);
   * ``kernel(x, streams)``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (``repro_torch.kernels.ops``);
+    version for CPU tensors (``repro_torch.kernels.ops``); a packed codec
+    without one serves through its decode (``models.quant``);
   * ``kv_encode(x)``: (..., hd) -> dict of u8 streams along hd (paper
     Sec. 6.4, K/V as right-hand GEMM operands); ``kv_decode`` its exact
     inverse to bf16; ``kv_spec(b, w, nkv, hd, device)`` a zero page.
@@ -33,16 +39,20 @@ index tuple starts with the layer, as the reference's does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import layout, ops, ref
-from .dtypes import FP4_E2M1, exp2int, fp4_code_to_value, \
-    fp4_value_to_code, round_to_grid
-from .formats import quantize_mxfp4
-from .m2xfp import GROUP, SUBGROUP, quantize_act_m2xfp, \
+from .dtypes import FP4_E2M1, exp2int, round_to_grid, sign_mag_code, \
+    signed_fp4
+from .ebw import format_ebw
+from .formats import quantize_fp4_fp16scale, quantize_mxfp4, \
+    quantize_nvfp4, quantize_smx4
+from .m2xfp import GROUP, SUBGROUP, quantize_act_m2nvfp4, \
+    quantize_act_m2xfp, quantize_weight_m2nvfp4, quantize_weight_m2xfp, \
     sg_em_dequant_with_scale
 from .packing import group_reshape, pack_meta2, pack_nibbles, \
     unpack_meta2, unpack_nibbles
@@ -62,15 +72,25 @@ class Codec:
     """One MX-family format: fake-quant always, packed paths optional."""
 
     name: str
+    group: int
+    ebw: float
+    fake_quant_weight: Callable[[torch.Tensor], torch.Tensor]
     fake_quant_act: Callable[[torch.Tensor], torch.Tensor]
-    encode: Optional[Callable] = None        # (K, N) -> {name: u8 2-D}
+    encode: Optional[Callable] = None        # (K, N) -> {name: 2-D}
     decode: Optional[Callable] = None        # (streams, k, n) -> f32 (K, N)
     decode_dtype: torch.dtype = torch.bfloat16
     kernel: Optional[Callable] = None        # fused dequant-GEMM
     kv_encode: Optional[Callable] = None     # (..., hd) -> {name: u8}
     kv_decode: Optional[Callable] = None     # inverse -> bf16 (..., hd)
     kv_spec: Optional[Callable] = None       # (b, w, nkv, hd, device) -> page
-    scale_kind: str = "e8m0"                 # u8 scale stream's encoding
+    scale_kind: str = "e8m0"                 # e8m0 | e4m3 | f16
+    scale_sat_bounds: Optional[Tuple[int, int]] = None  # saturated bytes
+    has_meta: bool = False                   # streams carry 2-bit metadata
+    # False where fake_quant_act scales per tensor (nvfp4-style): the
+    # online activation quantization then depends on which tokens share a
+    # launch, so chunked prefill and batched decode are not bit-identical
+    # to serving token by token (the cause that rules out a packed KV path)
+    act_batch_invariant: bool = True
 
     @property
     def packed(self) -> bool:
@@ -170,11 +190,18 @@ def _unravel(flat: int, shape) -> tuple:
     return tuple(reversed(idx))
 
 
-def _bad_scale_stats(sc: torch.Tensor) -> torch.Tensor:
-    """(count, first flat index, byte there) of the E8M0 bytes outside
-    [1, 254], as one int64 tensor on ``sc``'s device (index 0 if none)."""
+# what a u8 scale stream of each kind may hold: E8M0 bytes in [1, 254]
+# (byte 0 is never emitted, byte 255 is reserved and decodes to inf); any
+# E4M3 byte but the NaN encodings 0x7F / 0xFF
+_LEGAL_SCALES = {"e8m0": "[1, 254]", "e4m3": "any non-NaN e4m3 byte"}
+
+
+def _bad_scale_stats(sc: torch.Tensor, kind: str) -> torch.Tensor:
+    """(count, first flat index, byte there) of the illegal scale bytes of
+    ``kind``, as one int64 tensor on ``sc``'s device (index 0 if none)."""
     flat = sc.reshape(-1)
-    bad = (flat < 1) | (flat > 254)
+    bad = ((flat < 1) | (flat > 254) if kind == "e8m0"
+           else (flat & 0x7F) == 0x7F)
     first = torch.argmax(bad.to(torch.int32))       # the first maximum
     return torch.stack([bad.sum(), first, flat[first].long()])
 
@@ -189,7 +216,8 @@ def validate_packed(p: Union[PackedTensor, Sequence[PackedTensor]]) -> list:
     Checks: E8M0 scale bytes lie in [1, 254] (the encoders clamp exponents
     to [-126, 127], so byte 0 is never emitted and byte 255, reserved,
     decodes to inf: either means the stream was damaged after packing);
-    float streams are finite; the code stream holds two nibbles per
+    E4M3 scale bytes are not a NaN encoding (0x7F / 0xFF); float streams
+    (nvfp4's ``tscale``) are finite; the code stream holds two nibbles per
     logical element. On CUDA tensors the reductions run on the card and one
     small tensor per weight comes back to the host, never the streams."""
     stacked = not isinstance(p, PackedTensor)
@@ -200,12 +228,9 @@ def validate_packed(p: Union[PackedTensor, Sequence[PackedTensor]]) -> list:
         return [f"codec {first.codec!r} has no packed path"]
     problems = []
     sc = first.streams.get("scales")
-    if sc is not None and sc.dtype == torch.uint8:
-        if codec.scale_kind != "e8m0":
-            raise NotImplementedError(
-                f"scale kind {codec.scale_kind!r}: only e8m0 scales are "
-                f"validated in the port")
-        stats = torch.stack([_bad_scale_stats(leaf.streams["scales"])
+    kind = codec.scale_kind
+    if sc is not None and sc.dtype == torch.uint8 and kind in _LEGAL_SCALES:
+        stats = torch.stack([_bad_scale_stats(leaf.streams["scales"], kind)
                              for leaf in leaves]).cpu()   # (layers, 3)
         total = int(stats[:, 0].sum())
         if total:
@@ -214,9 +239,9 @@ def validate_packed(p: Union[PackedTensor, Sequence[PackedTensor]]) -> list:
                            leaves[layer].streams["scales"].shape)
             idx = ((layer,) if stacked else ()) + idx
             problems.append(
-                f"{total} scale byte(s) outside the legal "
-                f"{codec.scale_kind} range [1, 254] (first at index {idx}, "
-                f"byte {int(stats[layer, 2])})")
+                f"{total} scale byte(s) outside the legal {kind} range "
+                f"{_LEGAL_SCALES[kind]} (first at index {idx}, byte "
+                f"{int(stats[layer, 2])})")
     for name, s in first.streams.items():
         if s.dtype.is_floating_point and bool(torch.stack(
                 [~torch.isfinite(leaf.streams[name].float()).all()
@@ -254,6 +279,17 @@ def _decode_mxfp4(streams: dict, k: int, n: int) -> torch.Tensor:
     return ref.decode_w_mxfp4_ref(streams).reshape(k, n)
 
 
+def _decode_nvfp4(streams: dict, k: int, n: int) -> torch.Tensor:
+    """NVFP4 decode: fp4 * (E4M3 group scale * f32 tensor scale), f32
+    (K, N). Exact in f32 only: the tensor scale is any float."""
+    c = layout.interleave_unpack(streams["codes"])
+    s8 = streams["scales"].view(torch.float8_e4m3fn).to(torch.float32)
+    s = s8 * streams["tscale"].reshape(())
+    s = torch.where(s == 0, 1.0, s)                  # as the encode
+    w = signed_fp4(c).reshape(k // 16, 16, n) * s[:, None, :]
+    return w.reshape(k, n)
+
+
 # ---------------------------------------------------------------------------
 # Packed KV cache (paper Sec. 6.4): groups of 32 along hd, E8M0 floor scale
 # ---------------------------------------------------------------------------
@@ -266,19 +302,6 @@ def _kv_scale(x: torch.Tensor):
     return xg, e, exp2int(e)
 
 
-def _sign_mag_codes(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """FP4 grid values ``q`` of ``x`` -> 4-bit sign-magnitude codes (bit 3
-    set where x < 0, so -0.0 gets the positive code)."""
-    mag = fp4_value_to_code(q.abs())
-    return torch.where(x < 0, mag | 8, mag)
-
-
-def _signed_fp4(codes: torch.Tensor) -> torch.Tensor:
-    """4-bit sign-magnitude codes -> f32 values (code 8 gives -0.0)."""
-    sgn = torch.where((codes & 8) != 0, -1.0, 1.0)
-    return fp4_code_to_value(codes & 7) * sgn
-
-
 def _kv_encode_sgem(x: torch.Tensor) -> dict:
     """(..., hd) -> Sg-EM fixed-scale streams: codes (..., hd/2), scales
     and meta (..., hd/32) u8 (no group-bias search: b = 0)."""
@@ -289,7 +312,7 @@ def _kv_encode_sgem(x: torch.Tensor) -> dict:
     s_final = (1.0 + k_sel.to(torch.float32) / 4.0) * s     # (..., ng, ns)
     xsub = xg.reshape(*xg.shape[:-1], N_SUB, SUBGROUP)
     q = round_to_grid(xsub / s_final[..., None], FP4_E2M1)
-    codes = _sign_mag_codes(xsub, q).reshape(*x.shape[:-1], hd)
+    codes = sign_mag_code(q, xsub < 0).reshape(*x.shape[:-1], hd)
     return {
         "codes": pack_nibbles(codes),
         "scales": e8m0_encode(e[..., 0]),
@@ -304,7 +327,7 @@ def _kv_decode_sgem(p: dict) -> torch.Tensor:
     s = e8m0_decode(p["scales"])[..., None]                  # (..., ng, 1)
     k = unpack_meta2(p["meta"], (hd // GROUP) * N_SUB)
     mult = 1.0 + k.to(torch.float32) / 4.0
-    vals = _signed_fp4(codes).reshape(*lead, hd // GROUP, N_SUB, SUBGROUP)
+    vals = signed_fp4(codes).reshape(*lead, hd // GROUP, N_SUB, SUBGROUP)
     out = vals * mult.reshape(*lead, hd // GROUP, N_SUB, 1) * s[..., None]
     return out.reshape(*lead, hd).to(torch.bfloat16)
 
@@ -315,7 +338,7 @@ def _kv_encode_mxfp4(x: torch.Tensor) -> dict:
     xg, e, s = _kv_scale(x)
     q = round_to_grid(xg / s, FP4_E2M1)
     return {
-        "codes": pack_nibbles(_sign_mag_codes(xg, q).reshape(
+        "codes": pack_nibbles(sign_mag_code(q, xg < 0).reshape(
             *x.shape[:-1], hd)),
         "scales": e8m0_encode(e[..., 0]),
     }
@@ -326,7 +349,7 @@ def _kv_decode_mxfp4(p: dict) -> torch.Tensor:
     codes = unpack_nibbles(p["codes"])
     lead, hd = codes.shape[:-1], codes.shape[-1]
     s = e8m0_decode(p["scales"])[..., None]
-    vals = _signed_fp4(codes).reshape(*lead, hd // GROUP, GROUP) * s
+    vals = signed_fp4(codes).reshape(*lead, hd // GROUP, GROUP) * s
     return vals.reshape(*lead, hd).to(torch.bfloat16)
 
 
@@ -340,18 +363,58 @@ def _kv_spec(streams: Tuple[str, ...]) -> Callable:
     return spec
 
 
-register_codec(Codec(
-    name="m2xfp",
-    fake_quant_act=quantize_act_m2xfp,
-    encode=layout.pack_w_sgem, decode=_decode_sgem,
-    kernel=ops.m2xfp_matmul,
+_SGEM = dict(
+    encode=layout.pack_w_sgem, decode=_decode_sgem, kernel=ops.m2xfp_matmul,
     kv_encode=_kv_encode_sgem, kv_decode=_kv_decode_sgem,
-    kv_spec=_kv_spec(("codes", "scales", "meta"))))
+    kv_spec=_kv_spec(("codes", "scales", "meta")),
+    scale_kind="e8m0", scale_sat_bounds=(1, 254), has_meta=True)
 
 register_codec(Codec(
-    name="mxfp4",
-    fake_quant_act=quantize_mxfp4,
+    name="m2xfp", group=32, ebw=format_ebw("m2xfp"),
+    fake_quant_weight=quantize_weight_m2xfp,
+    fake_quant_act=quantize_act_m2xfp, **_SGEM))
+
+# Ablation (paper Tbl. 4): weights identical to m2xfp's (the same bytes,
+# kernel and KV path); activations refine the subgroup top-1 with an
+# unclamped FP6 instead of the 2-bit encoding.
+register_codec(Codec(
+    name="m2xfp_ideal6", group=32, ebw=format_ebw("m2xfp"),
+    fake_quant_weight=quantize_weight_m2xfp,
+    fake_quant_act=functools.partial(quantize_act_m2xfp, encoding="ideal"),
+    **_SGEM))
+
+register_codec(Codec(
+    name="m2nvfp4", group=16, ebw=format_ebw("m2nvfp4"),
+    fake_quant_weight=quantize_weight_m2nvfp4,
+    fake_quant_act=quantize_act_m2nvfp4,
+    scale_kind="e4m3", act_batch_invariant=False))
+
+register_codec(Codec(
+    name="mxfp4", group=32, ebw=format_ebw("mxfp4"),
+    fake_quant_weight=quantize_mxfp4, fake_quant_act=quantize_mxfp4,
     encode=layout.pack_w_mxfp4, decode=_decode_mxfp4,
     kernel=ops.mxfp4_matmul,
     kv_encode=_kv_encode_mxfp4, kv_decode=_kv_decode_mxfp4,
-    kv_spec=_kv_spec(("codes", "scales"))))
+    kv_spec=_kv_spec(("codes", "scales")),
+    scale_kind="e8m0", scale_sat_bounds=(1, 254)))
+
+# NVFP4's element scale is (E4M3 byte) * (per-tensor f32): an exact decode
+# needs f32, and per-call tensor scales make online KV packing depend on
+# which tokens share a call -- no KV path. It has no fused kernel in the
+# reference either: it serves through its decode (models.quant).
+register_codec(Codec(
+    name="nvfp4", group=16, ebw=format_ebw("nvfp4"),
+    fake_quant_weight=quantize_nvfp4, fake_quant_act=quantize_nvfp4,
+    encode=layout.pack_w_nvfp4, decode=_decode_nvfp4,
+    decode_dtype=torch.float32,
+    scale_kind="e4m3", scale_sat_bounds=(0, 126),
+    act_batch_invariant=False))
+
+register_codec(Codec(
+    name="smx4", group=16, ebw=format_ebw("smx4"),
+    fake_quant_weight=quantize_smx4, fake_quant_act=quantize_smx4))
+
+register_codec(Codec(
+    name="fp4", group=32, ebw=format_ebw("fp4_fp16scale"),
+    fake_quant_weight=quantize_fp4_fp16scale,
+    fake_quant_act=quantize_fp4_fp16scale, scale_kind="f16"))

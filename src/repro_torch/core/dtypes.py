@@ -8,6 +8,8 @@ integer RTNE equals floating-point RTNE on these grids.
 Formats:
   FP4 E2M1  (bias 1): magnitudes {0, .5, 1, 1.5, 2, 3, 4, 6}
   FP6 E2M3  (bias 1): 32 magnitudes, max 7.5, subnormal step 1/8
+  FP8 E4M3  (bias 7): max 448 (NVFP4's group scale; its byte view is
+            ``torch.float8_e4m3fn``)
   E8M0      (bias 127): power-of-two scale 2^E
 
 Code <-> value conversions use exponent-field arithmetic instead of a
@@ -22,9 +24,10 @@ import dataclasses
 import torch
 
 __all__ = [
-    "FloatSpec", "FP4_E2M1", "FP6_E2M3", "round_to_grid", "floor_log2",
-    "exp2int", "fp4_code_to_value", "fp4_value_to_code",
-    "fp6_code_to_value", "fp6_value_to_code", "sign",
+    "FloatSpec", "FP4_E2M1", "FP6_E2M3", "FP8_E4M3", "round_to_grid",
+    "floor_log2", "exp2int", "fp4_code_to_value", "fp4_value_to_code",
+    "fp6_code_to_value", "fp6_value_to_code", "sign", "div_const",
+    "log2_f32", "sign_mag_code", "signed_fp4",
 ]
 
 
@@ -36,6 +39,9 @@ class FloatSpec:
     exp_bits: int
     man_bits: int
     bias: int
+    # E4M3 reserves mantissa 0b111 of the top binade for NaN, so its
+    # largest value is 448, not the generic 480. None: the generic formula.
+    max_value_override: float | None = None
 
     @property
     def emax(self) -> int:
@@ -49,6 +55,8 @@ class FloatSpec:
 
     @property
     def max_value(self) -> float:
+        if self.max_value_override is not None:
+            return self.max_value_override
         return float(2.0 ** self.emax * (2.0 - 2.0 ** (-self.man_bits)))
 
     @property
@@ -59,6 +67,8 @@ class FloatSpec:
 
 FP4_E2M1 = FloatSpec("fp4_e2m1", exp_bits=2, man_bits=1, bias=1)
 FP6_E2M3 = FloatSpec("fp6_e2m3", exp_bits=2, man_bits=3, bias=1)
+FP8_E4M3 = FloatSpec("fp8_e4m3", exp_bits=4, man_bits=3, bias=7,
+                     max_value_override=448.0)
 
 
 def exp2int(e: torch.Tensor) -> torch.Tensor:
@@ -71,6 +81,22 @@ def exp2int(e: torch.Tensor) -> torch.Tensor:
 def floor_log2(x: torch.Tensor) -> torch.Tensor:
     """Exact floor(log2(|x|)) via frexp; x > 0 where used."""
     return torch.frexp(x)[1] - 1
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` correctly rounded on every device. PyTorch's CUDA division
+    by a Python scalar multiplies by the scalar's reciprocal, which rounds
+    differently where ``c`` is not a power of two; a 0-dim tensor on
+    ``x``'s device (a fill, no host-to-device copy) keeps it a division, as
+    on the CPU."""
+    return x / x.new_full((), c)
+
+
+def log2_f32(x: torch.Tensor) -> torch.Tensor:
+    """log2 of f32 ``x``, correctly rounded to f32 (taken in float64), so
+    the CPU and the card agree where a rounding or ceiling of it is taken
+    next to an integer or a half."""
+    return torch.log2(x.to(torch.float64)).to(torch.float32)
 
 
 def sign(x: torch.Tensor) -> torch.Tensor:
@@ -129,3 +155,16 @@ def fp6_value_to_code(v: torch.Tensor) -> torch.Tensor:
     code = ((e + 1) << 3) | ((b >> 20) & 7)
     sub = (v.to(torch.float32) * 8.0).to(torch.int32)
     return torch.where(v < 1.0, sub, code)
+
+
+def sign_mag_code(values: torch.Tensor, negative: torch.Tensor):
+    """FP4 grid values + sign mask -> 4-bit sign-magnitude codes (bit 3 =
+    sign, so a negative value that rounds to zero keeps its sign)."""
+    mag = fp4_value_to_code(values.abs())
+    return torch.where(negative, mag | 8, mag)
+
+
+def signed_fp4(codes: torch.Tensor) -> torch.Tensor:
+    """4-bit sign-magnitude codes -> f32 values (code 8 gives -0.0)."""
+    return fp4_code_to_value(codes & 7) * torch.where(
+        (codes & 8) != 0, -1.0, 1.0)

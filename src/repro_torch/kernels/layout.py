@@ -5,6 +5,8 @@ K (the GEMM contraction axis) is the major axis of every stream,
 
   weights W (K, N): codes u8 (K/2, N), scales u8 (K/32, N), meta u8 (K/32, N)
   activations X^T (K, M): the same three streams with N -> M
+  NVFP4 weights W (K, N): codes u8 (K/2, N), E4M3 scale bytes u8 (K/16, N)
+    and the f32 per-tensor scale ``tscale`` (1, 1)
 
 and nibbles pair group-half interleaved: within each group of 32 rows along
 K, byte row ``g*16 + r`` holds row ``g*32 + r`` (low nibble) and row
@@ -17,9 +19,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.dtypes import (
-    FP4_E2M1, exp2int, fp4_value_to_code, round_to_grid,
+    FP4_E2M1, exp2int, round_to_grid, sign_mag_code,
 )
-from repro_torch.core.formats import mxfp4_components
+from repro_torch.core.formats import mxfp4_components, nvfp4_scales
 from repro_torch.core.m2xfp import (
     elem_em_encode_parts, sg_em_dequant_with_scale,
 )
@@ -32,7 +34,7 @@ N_SUB = GROUP // SUBGROUP
 
 __all__ = [
     "GROUP", "SUBGROUP", "N_SUB", "pack_w_sgem", "pack_w_mxfp4",
-    "pack_x_elem_em", "interleave_pack", "interleave_unpack",
+    "pack_w_nvfp4", "pack_x_elem_em", "interleave_pack", "interleave_unpack",
 ]
 
 
@@ -59,28 +61,24 @@ def _pack_meta_fields(fields: torch.Tensor) -> torch.Tensor:
             | (f[:, 3] << 6)).to(torch.uint8)
 
 
-def _sign_mag(values: torch.Tensor, negative: torch.Tensor) -> torch.Tensor:
-    """FP4 grid values + sign mask -> 4-bit sign-magnitude codes."""
-    mag = fp4_value_to_code(values.abs())
-    return torch.where(negative, mag | 8, mag)
-
-
-def pack_w_sgem(w: torch.Tensor) -> dict:
-    """Sg-EM-2bit (adaptive) pack of weights (K, N), groups along K.
+def pack_w_sgem(w: torch.Tensor, adaptive: bool = True,
+                rule: str = "floor") -> dict:
+    """Sg-EM-2bit pack of weights (K, N), groups along K (``adaptive``:
+    the group exponent-bias search).
 
     Returns dict(codes u8 (K/2,N), scales u8 (K/32,N), meta u8 (K/32,N)),
     all contiguous."""
     k, n = w.shape
     wg = group_reshape(w.to(torch.float32).T, GROUP)   # (N, K/32, 32)
-    e = shared_scale_exponent(wg.abs().amax(dim=-1, keepdim=True))
+    e = shared_scale_exponent(wg.abs().amax(dim=-1, keepdim=True), rule)
     _, k_sel, b_val = sg_em_dequant_with_scale(
-        wg, exp2int(e), SUBGROUP, return_codes=True)
+        wg, exp2int(e), SUBGROUP, adaptive=adaptive, return_codes=True)
     e_stored = e[..., 0] + b_val                       # (N, K/32)
     s_final = ((1.0 + k_sel.to(torch.float32) / 4.0)
                * exp2int(e_stored)[..., None])         # (N, K/32, 4)
     wsub = wg.reshape(n, k // GROUP, N_SUB, SUBGROUP)
     q = round_to_grid(wsub / s_final[..., None], FP4_E2M1)
-    codes = _sign_mag(q, wsub < 0).reshape(n, k).T     # (K, N)
+    codes = sign_mag_code(q, wsub < 0).reshape(n, k).T     # (K, N)
     return {
         "codes": interleave_pack(codes).contiguous(),
         "scales": e8m0_encode(e_stored).T.contiguous(),
@@ -88,20 +86,41 @@ def pack_w_sgem(w: torch.Tensor) -> dict:
     }
 
 
-def pack_w_mxfp4(w: torch.Tensor) -> dict:
+def pack_w_mxfp4(w: torch.Tensor, rule: str = "floor") -> dict:
     """Plain MXFP4 pack of weights (K, N): dict(codes u8 (K/2,N), scales
     u8 (K/32,N)), contiguous."""
     k, n = w.shape
     wt = w.to(torch.float32).T
-    q, e = mxfp4_components(wt)                        # (N, K/32, 32)
-    codes = _sign_mag(q, group_reshape(wt, GROUP) < 0).reshape(n, k).T
+    q, e = mxfp4_components(wt, GROUP, rule)           # (N, K/32, 32)
+    codes = sign_mag_code(q, group_reshape(wt, GROUP) < 0).reshape(n, k).T
     return {
         "codes": interleave_pack(codes).contiguous(),
         "scales": e8m0_encode(e[..., 0]).T.contiguous(),
     }
 
 
-def pack_x_elem_em(x: torch.Tensor) -> dict:
+def pack_w_nvfp4(w: torch.Tensor) -> dict:
+    """NVFP4 pack of weights (K, N): FP4 codes (group-half interleaved, so
+    K % 32 == 0 like every packed operand), one E4M3 scale byte per group
+    of 16 along K, and the f32 per-tensor scale.
+
+    Returns dict(codes u8 (K/2,N), scales u8 (K/16,N), tscale f32 (1,1)),
+    contiguous. The scales are ``formats.nvfp4_scales``', so decoding gives
+    ``quantize_nvfp4`` of the K-groups bit for bit in f32."""
+    k, n = w.shape
+    xg, s8, t, s = nvfp4_scales(w.to(torch.float32).T, 16)  # (N, K/16, 16)
+    q = round_to_grid(xg / s, FP4_E2M1)
+    codes = sign_mag_code(q, xg < 0).reshape(n, k).T       # (K, N)
+    # s8 lies on the E4M3 grid, so the conversion is exact
+    sbytes = s8[..., 0].to(torch.float8_e4m3fn).view(torch.uint8).T
+    return {
+        "codes": interleave_pack(codes).contiguous(),
+        "scales": sbytes.contiguous(),                 # (K/16, N)
+        "tscale": t.reshape(1, 1),
+    }
+
+
+def pack_x_elem_em(x: torch.Tensor, rule: str = "floor") -> dict:
     """Elem-EM-top1 pack of activations x (M, K) into the K-major layout.
 
     Returns dict(codes u8 (K/2,M), scales u8 (K/32,M), meta u8 (K/32,M)),
@@ -109,9 +128,9 @@ def pack_x_elem_em(x: torch.Tensor) -> dict:
     exactly."""
     m, k = x.shape
     xg = group_reshape(x.to(torch.float32), GROUP)     # (M, K/32, 32)
-    e = shared_scale_exponent(xg.abs().amax(dim=-1, keepdim=True))
+    e = shared_scale_exponent(xg.abs().amax(dim=-1, keepdim=True), rule)
     q4, _, _, meta, _ = elem_em_encode_parts(xg, exp2int(e), SUBGROUP)
-    codes = _sign_mag(q4, xg < 0).reshape(m, k).T      # (K, M)
+    codes = sign_mag_code(q4, xg < 0).reshape(m, k).T      # (K, M)
     return {
         "codes": interleave_pack(codes).contiguous(),
         "scales": e8m0_encode(e[..., 0]).T.contiguous(),

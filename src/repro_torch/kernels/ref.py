@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.dtypes import fp4_code_to_value, fp6_code_to_value
+from repro_torch.core.dtypes import fp4_code_to_value, fp6_code_to_value, \
+    signed_fp4
 from repro_torch.core.scaling import e8m0_decode
 from .layout import GROUP, N_SUB, SUBGROUP, interleave_unpack, pack_x_elem_em
 
@@ -42,11 +43,6 @@ def dot_f64acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         torch.float32)
 
 
-def _signed_mag(codes: torch.Tensor) -> torch.Tensor:
-    mag = fp4_code_to_value(codes & 7)
-    return torch.where((codes & 8) != 0, -mag, mag)
-
-
 def _group_scales(scales: torch.Tensor) -> torch.Tensor:
     """u8 (K/32, N) -> f32 2^(s-127) broadcastable over (K/32, 32, N)."""
     return e8m0_decode(scales)[:, None, :]
@@ -65,7 +61,7 @@ def decode_w_sgem_ref(packed: dict) -> torch.Tensor:
     k, n = codes.shape
     fields = _fields(packed["meta"]).to(torch.float32)     # (K/32, 4, N)
     mult = (1.0 + fields / 4.0).repeat_interleave(SUBGROUP, dim=1)
-    w = _signed_mag(codes).reshape(k // GROUP, GROUP, n) * mult \
+    w = signed_fp4(codes).reshape(k // GROUP, GROUP, n) * mult \
         * _group_scales(packed["scales"])
     return w.reshape(k, n)
 
@@ -74,7 +70,7 @@ def decode_w_mxfp4_ref(packed: dict) -> torch.Tensor:
     """MXFP4 packed weight streams -> dense f32 (K, N): fp4 * 2^(scale-127)."""
     codes = interleave_unpack(packed["codes"])
     k, n = codes.shape
-    w = _signed_mag(codes).reshape(k // GROUP, GROUP, n) \
+    w = signed_fp4(codes).reshape(k // GROUP, GROUP, n) \
         * _group_scales(packed["scales"])
     return w.reshape(k, n)
 

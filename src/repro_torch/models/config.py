@@ -55,7 +55,7 @@ class ModelConfig:
 
     # quantization of GEMM operands (the paper's technique)
     quant: str = "none"                     # none | qat | serve
-    quant_format: str = "m2xfp"             # m2xfp | mxfp4 | nvfp4
+    quant_format: str = "m2xfp"             # any codecs.packed_codecs()
     kv_quant: str = "none"     # none | any codecs.kv_codecs() (Sec. 6.4)
 
     # distribution hints

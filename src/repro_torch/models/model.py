@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.codecs import get_codec, packed_codecs
 from . import attention as attn
 from .kvquant import kv_codec
 from .layers import init_embedding, init_mlp, mlp_apply, rms_norm
@@ -34,8 +35,9 @@ _PACK_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 def check_supported(cfg) -> None:
     """Raise for configuration features the port has not taken yet, and
-    (``ValueError`` naming ``kv_codecs()``) for a ``kv_quant`` codec with
-    no packed KV path."""
+    ``ValueError`` for a served ``quant_format`` with no packed path
+    (naming ``packed_codecs()``) or a ``kv_quant`` codec with no packed KV
+    path (naming ``kv_codecs()``), in the reference's words."""
     missing = [name for name, on in (
         (f"family={cfg.family!r}", cfg.family != "dense"),
         ("experts", cfg.is_moe),
@@ -52,6 +54,10 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the torch port serves dense attention models "
             f"only; not ported yet: {', '.join(missing)}")
+    if cfg.quant == "serve" and not get_codec(cfg.quant_format).packed:
+        raise ValueError(
+            f"cfg.quant_format={cfg.quant_format!r} has no packed serving "
+            f"path; packable codecs: {', '.join(packed_codecs())}")
     if cfg.kv_quant != "none":
         kv_codec(cfg.kv_quant)
 

@@ -4,12 +4,16 @@ Modes (``ModelConfig.quant``):
   none  : plain bf16 GEMM with f32 accumulation.
   serve : the weight is a packed :class:`PackedTensor` resident on the
           device at its codec's bits per element; the activations are
-          fake-quantized online with the same codec, rounded to bf16, and
-          go through the codec's fused dequant-GEMM -- the hand-written CUDA
-          kernel for a CUDA tensor, its plain version for a CPU tensor.
+          fake-quantized online with the same codec and rounded to bf16.
+          A codec with a fused dequant-GEMM (``kernel_codecs()``) takes
+          it -- the hand-written CUDA kernel for a CUDA tensor, its plain
+          version for a CPU tensor; one without (nvfp4) decodes the weight
+          in its exact dtype and multiplies (``dot_f32acc``), as the
+          reference's decode mirror does.
 
 Training's ``qat`` mode is not ported yet. Every format decision goes
-through the codec registry (``repro_torch.core.codecs``).
+through the codec registry (``repro_torch.core.codecs``):
+``fake_quant_weight`` / ``fake_quant_act`` look a codec up by name.
 """
 from __future__ import annotations
 
@@ -22,9 +26,21 @@ from repro_torch.kernels.ops import packed_matmul
 from .numerics import dot_f32acc
 
 __all__ = [
-    "init_linear", "pack_serving_weight", "decode_serving_weight",
-    "quantized_matmul", "PackedTensor",
+    "fake_quant_weight", "fake_quant_act", "init_linear",
+    "pack_serving_weight", "decode_serving_weight", "quantized_matmul",
+    "PackedTensor",
 ]
+
+
+def fake_quant_weight(w: torch.Tensor, fmt: str = "m2xfp") -> torch.Tensor:
+    """Weight fake-quant along the contraction (first) axis."""
+    wt = w.reshape(w.shape[0], -1).T        # (out, in): groups along in-dim
+    return get_codec(fmt).fake_quant_weight(wt).T.reshape(w.shape)
+
+
+def fake_quant_act(x: torch.Tensor, fmt: str = "m2xfp") -> torch.Tensor:
+    """Activation fake-quant along the last (contraction) axis."""
+    return get_codec(fmt).fake_quant_act(x)
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,
@@ -38,8 +54,10 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
 def pack_serving_weight(w: torch.Tensor, fmt: str = "m2xfp") -> PackedTensor:
     """(K, N) weight -> packed codec streams, groups along K (axis 0).
     A weight on the "meta" device gives streams of the right shapes and
-    dtypes on "meta" (each stream's rows per group of 32 read off the
-    encode of one group), without running the encoder."""
+    dtypes on "meta" without running the encoder: each (rows, N) stream's
+    rows per group of 32 are read off the encode of one group of two
+    columns; a per-tensor scalar (nvfp4's ``tscale`` (1, 1)) keeps its
+    shape."""
     codec = get_codec(fmt)
     if not codec.packed:
         raise ValueError(f"codec {fmt!r} has no packed serving path; "
@@ -49,9 +67,10 @@ def pack_serving_weight(w: torch.Tensor, fmt: str = "m2xfp") -> PackedTensor:
                          f"shape {tuple(w.shape)}")
     k, n = w.shape
     if w.is_meta:
-        streams = {name: torch.empty((s.shape[0] * (k // 32), n),
-                                     dtype=s.dtype, device="meta")
-                   for name, s in codec.encode(torch.zeros(32, 1)).items()}
+        streams = {name: torch.empty(
+            (s.shape[0] * (k // 32), n) if s.shape[1] == 2 else s.shape,
+            dtype=s.dtype, device="meta")
+            for name, s in codec.encode(torch.zeros(32, 2)).items()}
     else:
         streams = codec.encode(w)
     return PackedTensor(streams, (k, n), fmt)
@@ -59,19 +78,25 @@ def pack_serving_weight(w: torch.Tensor, fmt: str = "m2xfp") -> PackedTensor:
 
 def decode_serving_weight(p: PackedTensor, dtype=None) -> torch.Tensor:
     """Packed streams -> dense (K, N) weight in the codec's exact dtype
-    (bf16) unless ``dtype`` overrides it."""
+    (bf16 for the E8M0-scaled codecs, f32 for nvfp4) unless ``dtype``
+    overrides it."""
     codec = get_codec(p.codec)
     k, n = p.shape
     return codec.decode(p.streams, k, n).to(dtype or codec.decode_dtype)
 
 
 def _serve_matmul(x: torch.Tensor, w: PackedTensor) -> torch.Tensor:
-    """Online activation fake-quant with the weight's codec, bf16 rounding,
-    then the packed GEMM; the f32 result is cast back to ``x.dtype``."""
+    """Online activation fake-quant with the weight's codec and bf16
+    rounding, then the codec's packed GEMM, or, for a codec without one,
+    its decode and ``dot_f32acc`` of the activations upcast to the decoded
+    dtype. The f32 result is cast back to ``x.dtype``."""
     codec = get_codec(w.codec)
     k = w.shape[0]
     n = math.prod(w.shape[1:])
     xq = codec.fake_quant_act(x.to(torch.float32)).to(torch.bfloat16)
+    if codec.kernel is None:
+        wd = decode_serving_weight(w)
+        return dot_f32acc(xq.to(wd.dtype), wd).to(x.dtype)
     out = packed_matmul(xq.reshape(-1, k), w.streams, w.codec)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
 

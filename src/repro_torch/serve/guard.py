@@ -367,10 +367,17 @@ def verify_packed_tree(packed, cfg=None, source_params=None,
 
 
 def _clamp_scales(p: PackedTensor, codec) -> Optional[PackedTensor]:
-    """A copy of ``p`` with its u8 E8M0 scale bytes clamped into [1, 254];
-    None if it has no such stream to clamp."""
+    """A copy of ``p`` with its u8 scale bytes pulled into the codec's
+    legal range: E8M0 bytes clamped into [1, 254], E4M3 NaN patterns
+    (0x7F / 0xFF) lowered to the largest normal (0x7E / 0xFE); None if it
+    has no such stream to clamp."""
     sc = p.streams.get("scales")
-    if sc is None or sc.dtype != torch.uint8 or codec.scale_kind != "e8m0":
+    if sc is None or sc.dtype != torch.uint8:
         return None
-    return PackedTensor({**p.streams, "scales": sc.clamp(1, 254)}, p.shape,
-                        p.codec)
+    if codec.scale_kind == "e8m0":
+        fixed = sc.clamp(1, 254)
+    elif codec.scale_kind == "e4m3":
+        fixed = torch.where((sc & 0x7F) == 0x7F, sc - 1, sc)
+    else:
+        return None
+    return PackedTensor({**p.streams, "scales": fixed}, p.shape, p.codec)

@@ -3,7 +3,20 @@
 The same numpy inputs (heavy-tailed LLM-like tensors, zeros, saturating
 groups and exact rounding ties) go through ``repro.core`` and
 ``repro_torch.core``; every fake-quantized output must have identical f32
-bits."""
+bits.
+
+The formats whose scale is not a power of two (nvfp4, fp4 and M2-NVFP4)
+are held against the reference run op by op (``jax.disable_jit``): under
+``jit`` XLA rewrites a division by a constant (``/ 6``, ``/ (448 * 6)``) as a
+product with its rounded reciprocal, which moves 22-76% of their outputs
+by an ulp of the scale (ROADMAP, queue C). The port divides, as the code
+says and as the reference's op-by-op run does. SMX4 meets a second such
+rewrite on the saturating input: XLA folds ``3 * s / 2`` into ``1.5 * s``,
+which differs where ``3 * s`` overflows (E = 127, the group of 3e38)."""
+import contextlib
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +37,25 @@ QUANTIZERS = {
     "weight_m2xfp": (r_m2xfp.quantize_weight_m2xfp,
                      p_m2xfp.quantize_weight_m2xfp),
     "mxfp4": (r_formats.quantize_mxfp4, p_formats.quantize_mxfp4),
+    "act_m2xfp_ideal6": (
+        functools.partial(r_m2xfp.quantize_act_m2xfp, encoding="ideal"),
+        functools.partial(p_m2xfp.quantize_act_m2xfp, encoding="ideal")),
+    "act_m2nvfp4": (r_m2xfp.quantize_act_m2nvfp4,
+                    p_m2xfp.quantize_act_m2nvfp4),
+    "weight_m2nvfp4": (r_m2xfp.quantize_weight_m2nvfp4,
+                       p_m2xfp.quantize_weight_m2nvfp4),
+    "nvfp4": (r_formats.quantize_nvfp4, p_formats.quantize_nvfp4),
+    "smx4": (r_formats.quantize_smx4, p_formats.quantize_smx4),
+    "fp4": (r_formats.quantize_fp4_fp16scale,
+            p_formats.quantize_fp4_fp16scale),
 }
+# held against the reference run op by op (see the module docstring)
+EAGER = {"act_m2nvfp4", "weight_m2nvfp4", "nvfp4", "fp4", ("smx4", "saturate")}
+
+
+def reference_mode(eager: bool):
+    """The context the reference runs in: op by op, or as written (jit)."""
+    return jax.disable_jit() if eager else contextlib.nullcontext()
 
 
 def _ties() -> np.ndarray:
@@ -75,16 +106,23 @@ def _same_bits(a: np.ndarray, b: np.ndarray) -> None:
 def test_quantizer_bit_identical(name, kind):
     ref_fn, port_fn = QUANTIZERS[name]
     x = _inputs(kind)
-    want = np.asarray(ref_fn(jnp.asarray(x)))
+    with reference_mode(name in EAGER or (name, kind) in EAGER):
+        want = np.asarray(ref_fn(jnp.asarray(x)))
     got = port_fn(torch.from_numpy(x)).numpy()
     _same_bits(want, got)
 
 
-@pytest.mark.parametrize("spec", ["FP4_E2M1", "FP6_E2M3"])
+@pytest.mark.parametrize("spec", ["FP4_E2M1", "FP6_E2M3", "FP8_E4M3"])
 def test_round_to_grid_sweep(spec):
-    """RTNE with saturation on a dense sweep through every midpoint."""
+    """RTNE with saturation on a dense sweep through every midpoint (for
+    E4M3 also its subnormals, every binade up to 448 and beyond)."""
     xs = np.concatenate([np.linspace(-9, 9, 8193, dtype=np.float32),
                          np.arange(-64, 65, dtype=np.float32) / 16.0])
+    if spec == "FP8_E4M3":
+        xs = np.concatenate([xs, np.linspace(-500, 500, 16001,
+                                             dtype=np.float32),
+                             np.arange(0, 129, dtype=np.float32) / 2 ** 10,
+                             np.float32(2.0) ** np.arange(-12, 10)])
     want = np.asarray(r_dtypes.round_to_grid(jnp.asarray(xs),
                                              getattr(r_dtypes, spec)))
     got = p_dtypes.round_to_grid(torch.from_numpy(xs),

@@ -364,11 +364,7 @@ def _prefill_vs_decode(params, cfg, tokens, log, caches=None, index=None,
     return got, torch.stack(steps, 1), first, copy
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("kv_quant", KV_QUANTS)
-@pytest.mark.parametrize("fmt", ["m2xfp", "mxfp4"])
-def test_prefill_chunk_bitexact_vs_decode_full_width(fmt, kv_quant,
-                                                     monkeypatch):
+def _check_prefill_full_width(fmt, kv_quant, monkeypatch):
     """Full-width paper-llama2-7b (d 4096, ff 11008, vocab 32000) cut to 2
     layers, random packed weights from a seeded CUDA generator, a bf16 or
     packed KV cache: one prefill chunk of 8 tokens in 8 slots gives the
@@ -400,6 +396,25 @@ def test_prefill_chunk_bitexact_vs_decode_full_width(fmt, kv_quant,
                 else ({"": a[name]}, {"": b[name]})
             for s in pa:
                 assert torch.equal(pa[s], pb[s]), (i, name, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", KV_QUANTS)
+@pytest.mark.parametrize("fmt", ["m2xfp", "mxfp4"])
+def test_prefill_chunk_bitexact_vs_decode_full_width(fmt, kv_quant,
+                                                     monkeypatch):
+    """_check_prefill_full_width for m2xfp and mxfp4 weights."""
+    _check_prefill_full_width(fmt, kv_quant, monkeypatch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["none", "m2xfp_ideal6"])
+def test_ideal6_prefill_chunk_bitexact_vs_decode_full_width(kv_quant,
+                                                            monkeypatch):
+    """_check_prefill_full_width for the ideal-FP6 ablation (m2xfp's
+    weights and kernel, unclamped FP6 activations), with a bf16 and its
+    own packed KV cache."""
+    _check_prefill_full_width("m2xfp_ideal6", kv_quant, monkeypatch)
 
 
 @pytest.mark.gpu
@@ -520,16 +535,20 @@ def test_prefill_vs_decode_trace_names_a_planted_fault_on_cpu(monkeypatch):
 # The serving guard on the card
 # ---------------------------------------------------------------------------
 
-def _to_cpu(tree):
+def _to_device(tree, device):
     from repro_torch.core.codecs import PackedTensor
     if isinstance(tree, PackedTensor):
-        return PackedTensor({s: t.cpu() for s, t in tree.streams.items()},
+        return PackedTensor({s: t.to(device) for s, t in tree.streams.items()},
                             tree.shape, tree.codec)
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_cpu(v) for v in tree]
-    return tree.cpu()
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _to_cpu(tree):
+    return _to_device(tree, "cpu")
 
 
 @pytest.mark.gpu
@@ -656,3 +675,153 @@ def test_cuda_quarantine_keeps_survivors_bit_identical(kv_quant):
     summary = eng.guard_summary()
     assert (summary["quarantines"], summary["retries"],
             summary["scrubs"]) == (2, 1, 0)
+
+
+# ---------------------------------------------------------------------------
+# The codec matrix on the card
+# ---------------------------------------------------------------------------
+
+# a flip of one FP4 step in a few activations of the last layers, at
+# this model's scale (test_cuda_engine_codecs_match_cpu)
+LAST_TOL_NVFP4 = 0.25
+CODEC_NAMES = ["fp4", "m2nvfp4", "m2xfp", "m2xfp_ideal6", "mxfp4", "nvfp4",
+               "smx4"]
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CODEC_NAMES)
+def test_cuda_fake_quant_equals_cpu(name):
+    """Every codec's fake_quant_act (heavy-tailed (8, 4096) and bf16-rounded
+    (64, 1024) activations, and rows scaled by 2^-20..2^20) and
+    fake_quant_weight (a (1024, 256) weight, groups along K) give the CPU's
+    f32 bits on the card: the port divides where the code divides
+    (``div_const``) and takes a correctly rounded log2 (``log2_f32``) on
+    both devices. Every group maximum is 0 or >= 2^-100."""
+    _need_cuda()
+    from repro_torch.models.quant import fake_quant_act, fake_quant_weight
+    rng = np.random.default_rng(12)
+    acts = [heavy_tailed(rng, (8, 4096), ch_sigma=2.0),
+            heavy_tailed(rng, (64, 1024)),
+            rng.standard_normal((41, 512)).astype(np.float32)
+            * np.float32(2.0) ** rng.integers(-20, 21, (41, 1))]
+    acts[1] = torch.from_numpy(acts[1]).to(torch.bfloat16).float().numpy()
+    for i, x in enumerate(acts):
+        xt = torch.from_numpy(x)
+        assert _same_bits(fake_quant_act(xt.cuda(), name).cpu(),
+                          fake_quant_act(xt, name)), (name, i)
+    w = torch.from_numpy(heavy_tailed(rng, (1024, 256)))
+    assert _same_bits(fake_quant_weight(w.cuda(), name).cpu(),
+                      fake_quant_weight(w, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["floor", "ceil", "rtn1", "rtn2", "rtne"])
+def test_cuda_scale_rules_equal_cpu(rule):
+    """The five scale rules on the card: exponents at the edges where a
+    log2 is rounded (M sqrt(2) 2^k, M 2^k and their neighbours), and MXFP4
+    and m2xfp fake-quant by rule, equal the CPU's."""
+    _need_cuda()
+    from repro_torch.core.formats import quantize_mxfp4
+    from repro_torch.core.m2xfp import quantize_weight_m2xfp
+    from repro_torch.core.scaling import shared_scale_exponent
+    ks = np.arange(-110, 111, dtype=np.float64)
+    amax = np.concatenate([np.float32(b * 2 ** ks) for b in
+                           (6.0, 4.0, 6.0 * 2 ** 0.5, 4.0 * 2 ** 0.5)])
+    amax = np.concatenate([amax, np.nextafter(amax, np.float32(np.inf)),
+                           np.nextafter(amax, np.float32(0))])
+    a = torch.from_numpy(amax.astype(np.float32))
+    assert torch.equal(shared_scale_exponent(a.cuda(), rule).cpu(),
+                       shared_scale_exponent(a, rule))
+    x = torch.from_numpy(heavy_tailed(np.random.default_rng(13), (64, 2048)))
+    for fn in (quantize_mxfp4, quantize_act_m2xfp, quantize_weight_m2xfp):
+        assert _same_bits(fn(x.cuda(), rule=rule).cpu(), fn(x, rule=rule)), \
+            fn.__name__
+
+
+@pytest.mark.gpu
+def test_cuda_pack_w_nvfp4_equals_cpu():
+    """pack_w_nvfp4 on the card writes the CPU's codes, E4M3 scale bytes
+    and tensor-scale bits, and its decode gives the CPU's f32 bits."""
+    _need_cuda()
+    from repro_torch.core.codecs import get_codec
+    rng = np.random.default_rng(14)
+    for w in (heavy_tailed(rng, (1024, 384)),
+              rng.standard_normal((512, 64)).astype(np.float32) * 1e-3):
+        wt = torch.from_numpy(w)
+        want = layout.pack_w_nvfp4(wt)
+        got = layout.pack_w_nvfp4(wt.cuda())
+        for k in want:
+            assert torch.equal(got[k].cpu().view(torch.uint8),
+                               want[k].view(torch.uint8)), k
+        dec = get_codec("nvfp4").decode
+        assert _same_bits(dec(got, *w.shape).cpu(), dec(want, *w.shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,kv_quant", [("m2xfp_ideal6", "none"),
+                                          ("m2xfp_ideal6", "m2xfp_ideal6"),
+                                          ("nvfp4", "none")])
+def test_cuda_engine_codecs_match_cpu(fmt, kv_quant):
+    """The engine on the card against the engine on the CPU, on the same
+    packed bytes (2 layers, d 256, hd 64, 6 requests through 4 slots,
+    chunks of 4). The card's run is fed the CPU run's tokens, so both see
+    the same inputs at every launch. The first launch (prefill) and the
+    last (decode) give logits within 2e-3 of the CPU's (|logits| < 4): the
+    GEMMs' f32 summation orders differ and can move an activation across a
+    rounding edge of the next fake-quant. nvfp4's last launch is held
+    within LAST_TOL_NVFP4 only: its per-tensor scale t = amax / 2688 puts
+    many bf16 activations exactly on an FP4 rounding tie, so an ulp of
+    difference in one tensor's maximum flips many elements at once (on the
+    CPU an ulp of t alone moves a small model's logits by more than 1e-2,
+    tests/test_torch_codecs.py::test_nvfp4_tensor_scale_ulp_moves_logits;
+    on the card this test's last launch differed by 0.161, NVIDIA H100
+    80GB HBM3, 700 W). m2xfp_ideal6 launches kernel #1 7 times per layer
+    per launch, nvfp4 no dequant-GEMM."""
+    _need_cuda()
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = ModelConfig(name="codec-card", family="dense", n_layers=2,
+                      d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                      vocab_size=512, quant="serve", quant_format=fmt,
+                      kv_quant=kv_quant)
+    params = init_packed_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(15)
+    prompts = [list(map(int, rng.integers(0, 512, n)))
+               for n in (5, 9, 3, 12, 7, 4)]
+    cpu_logits, cpu_tokens = [], []
+
+    def record(logits):
+        cpu_logits.append(logits)
+        cpu_tokens.append(np.argmax(logits, axis=-1))
+        return cpu_tokens[-1]
+
+    cpu = ServeEngine(params, cfg, n_slots=4, max_len=32, prefill_chunk=4,
+                      sample_fn=record, device="cpu")
+    want = cpu.generate(prompts, 6)
+    card_logits = []
+
+    def forced(logits):
+        card_logits.append(logits)
+        return cpu_tokens[len(card_logits) - 1]
+
+    for k in (M2XFP_KERNEL, MXFP4_KERNEL, QUANTIZE_KERNEL, QKERNEL):
+        k.launches = 0
+    card = ServeEngine(_to_device(params, "cuda"), cfg, n_slots=4, max_len=32,
+                       prefill_chunk=4, sample_fn=forced, device="cuda")
+    assert card.generate(prompts, 6) == want
+    assert len(card_logits) == len(cpu_logits) == card.stats.steps
+    for i, tol in ((0, 2e-3), (-1, LAST_TOL_NVFP4 if fmt == "nvfp4"
+                                else 2e-3)):
+        assert np.abs(cpu_logits[i]).max() < 4
+        np.testing.assert_allclose(card_logits[i], cpu_logits[i], rtol=0,
+                                   atol=tol, err_msg=str(i))
+    expected = 7 * cfg.n_layers * card.stats.steps if fmt != "nvfp4" else 0
+    assert M2XFP_KERNEL.launches == expected
+    assert MXFP4_KERNEL.launches == QUANTIZE_KERNEL.launches == \
+        QKERNEL.launches == 0

@@ -101,4 +101,13 @@ def test_packed_matmul_dispatches_cpu_to_plain(fmt):
 
 def test_packed_matmul_unknown_codec_raises():
     with pytest.raises(ValueError, match="unknown codec"):
+        p_ops.packed_matmul(torch.zeros(1, 32), {}, "int4")
+
+
+def test_packed_matmul_codec_without_kernel_raises():
+    """nvfp4 packs but has no fused kernel (it serves through its decode,
+    models.quant); asking the kernel dispatch for it names the codecs that
+    have one."""
+    with pytest.raises(ValueError, match="has no serve kernel; kernel-backed "
+                                         "codecs: m2xfp, m2xfp_ideal6, mxfp4"):
         p_ops.packed_matmul(torch.zeros(1, 32), {}, "nvfp4")

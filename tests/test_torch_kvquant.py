@@ -157,10 +157,10 @@ def test_kv_page_write_keeps_masked_rows(fmt):
                 assert torch.equal(page[k][b, w], want), (k, b, w)
 
 
-@pytest.mark.parametrize("kv_quant", ["nvfp4", "no-kv-path"])
+@pytest.mark.parametrize("kv_quant", ["nvfp4", "no-kv-path", "int4"])
 def test_check_supported_names_kv_codecs(kv_quant, monkeypatch):
-    """An unknown codec and a registered one without a KV path both raise
-    ValueError listing kv_codecs()."""
+    """An unknown codec and a registered one without a KV path (nvfp4, or
+    one planted here) both raise ValueError listing kv_codecs()."""
     import dataclasses
     from repro_torch.core import codecs
     from repro_torch.models.config import ModelConfig
@@ -169,9 +169,10 @@ def test_check_supported_names_kv_codecs(kv_quant, monkeypatch):
     monkeypatch.setitem(codecs._REGISTRY, "no-kv-path", dataclasses.replace(
         m2xfp, name="no-kv-path", kv_encode=None, kv_decode=None,
         kv_spec=None))
-    assert codecs.kv_codecs() == ("m2xfp", "mxfp4")
+    assert codecs.kv_codecs() == ("m2xfp", "m2xfp_ideal6", "mxfp4")
     cfg = ModelConfig(**BASE, kv_quant=kv_quant)
-    with pytest.raises(ValueError, match="KV-capable codecs: m2xfp, mxfp4"):
+    with pytest.raises(ValueError, match="KV-capable codecs: m2xfp, "
+                                         "m2xfp_ideal6, mxfp4"):
         check_supported(cfg)
     for fmt in KV:
         check_supported(ModelConfig(**BASE, kv_quant=fmt))
