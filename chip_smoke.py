@@ -8,14 +8,16 @@ printing JSON lines:
 
   1. device   -- card, power limit, torch/CUDA versions, kernel build time,
                  ptxas registers and spills (flash attention, the two
-                 dequant-GEMMs and the W4A4 GEMM must spill nothing)
+                 dequant-GEMMs, the W4A4 GEMM and the quantize engine must
+                 spill nothing; the quantize engine's registers per instance)
   2. kernels  -- each dequant-GEMM at the full-width paper-llama2-7b
                  projection shapes and M in {1, 8, 64, 129}: held against its
                  plain version within the expected size of f32 rounding
                  (see TOLERANCE), shown to reject a planted one-group fault
                  of the packed weight, rows bit-identical across M, the same
-                 bits from two calls, timed with the 50 MB L2 flushed between
-                 launches, beside its bound (and the share of it reached),
+                 bits from two calls, timed with a 256 MB buffer zeroed
+                 before each launch (so the 50 MB L2 holds none of the
+                 operands), beside its bound (and the share of it reached),
                  the plain version and a library yardstick; each line names
                  the split count (a function of K and N) and the workspace
                  (none: the splits are summed inside a thread-block cluster);
@@ -94,7 +96,10 @@ printing JSON lines:
                  split plan, X decoded exactly into the serve GEMM's bf16
                  operand), rows bit-identical across M, a planted
                  activation-meta fault flagged at every shape, and times
-                 beside bound, plain and library
+                 beside bound, plain and library (the quantize engine's
+                 share_of_bound at every point); then the launch floor (the
+                 event time of torch.zeros(1)) and the quantize engine's
+                 kernel-only time at M = 8 from torch.profiler
   10. flash   -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
                  layer's prefill): causal at S = 512 and 2048, S = 2048 with
                  a 512 window, with softcap 50 on q scaled by 8 (so scores
@@ -213,26 +218,17 @@ def nvidia_smi() -> str:
 
 
 class Timer:
-    """Median CUDA-event time of a call, with L2 flushed before each."""
+    """Median CUDA-event time of a call, with a 256 MB buffer zeroed before
+    each (so the 50 MB L2 holds none of its operands):
+    repro_torch.kernels.quantize_probe.event_ms."""
 
     def __init__(self, device):
         self.flush_buf = torch.empty(256 << 20, dtype=torch.uint8,
                                      device=device)
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
-        for _ in range(warmup):
-            fn()
-        pairs = []
-        for _ in range(iters):
-            self.flush_buf.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            pairs.append((start, end))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+        from repro_torch.kernels.quantize_probe import event_ms
+        return event_ms(fn, self.flush_buf, iters, warmup)
 
 
 def bound(m: int, k: int, n: int, weight_bytes: int):
@@ -1099,6 +1095,7 @@ def w4a4_phase(timer, gen, device, kernels):
     from repro_torch.kernels import layout, ref
     from repro_torch.kernels.m2xfp_matmul import QKERNEL
     from repro_torch.kernels.m2xfp_quantize import KERNEL as QUANT
+    from repro_torch.kernels.quantize_probe import kernel_only_ms
     weights = [layout.pack_w_sgem(torch.randn(k, n, generator=gen,
                                               device=device) * 0.02)
                for k, n in W4A4_PROJS]
@@ -1193,7 +1190,7 @@ def w4a4_phase(timer, gen, device, kernels):
                 line.update(
                     quantize=dict(kernel_ms=t_q, plain_ms=t_qp,
                                   library_ms=None, bound_ms=bq, bound_by=byq,
-                                  bytes=nq),
+                                  bytes=nq, share_of_bound=bq / t_q),
                     qmatmul=dict(kernel_ms=t_g, plain_ms=t_gp,
                                  library_ms=t_gl, library=W4A4_LIBRARY,
                                  bound_ms=bg, bound_by=byg, bytes=ng))
@@ -1215,6 +1212,15 @@ def w4a4_phase(timer, gen, device, kernels):
                                          f" differ from those of M={big}")
         emit("w4a4", projection=p, K=k, N=n, row_independent=True)   # (d)
         del wdec, wdec16
+    # the launch floor beside the quantize engine at a few rows: the event
+    # time of the smallest launch, and the engine's own device time
+    quant_m8 = {k: kernel_only_ms(lambda: K.m2xfp_quantize(x[:8]),
+                                  timer.flush_buf)
+                for k, x in xs.items()}
+    emit("w4a4", launch_floor_ms=timer(lambda: torch.zeros(1, device=device)),
+         quantize_kernel_only_ms_at_m8=quant_m8,
+         kernel_only="torch.profiler device time of the quantize kernel, "
+                     "mean per launch over 20, L2 flushed before each")
     measured = ("the 7 projections of one paper-llama2-7b layer at M=8 "
                 "(sum)")
     return {
@@ -1391,14 +1397,18 @@ def main() -> int:
         return sum(found) if found else None
 
     spills = {k.name: spill_bytes(k.name)
-              for k in (FLASH, M2XFP, MXFP4, QKERNEL)}
+              for k in (FLASH, M2XFP, MXFP4, QKERNEL, QUANT)}
+    quant_regs = [int(n) for n in re.findall(
+        r"Used (\d+) registers", built["ptxas"].get(QUANT.name, ""))]
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, allow_tf32=False,
          build_s=built["seconds"], ptxas=regs,
          flash_spill_bytes=spills[FLASH.name],
          gemm_spill_bytes={k: spills[k]
-                           for k in (M2XFP.name, MXFP4.name, QKERNEL.name)})
+                           for k in (M2XFP.name, MXFP4.name, QKERNEL.name)},
+         quantize_spill_bytes=spills[QUANT.name],
+         quantize_registers=quant_regs)
     if any(spills.values()):
         raise AssertionError(f"kernels spill registers: {spills}")
     lap("device")

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.m2xfp_matmul import KERNEL as M2XFP_KERNEL
 from repro_torch.kernels.m2xfp_matmul import QKERNEL
 from repro_torch.kernels.m2xfp_quantize import KERNEL as QUANTIZE_KERNEL
+from repro_torch.kernels.m2xfp_quantize import plan as quantize_plan
 from repro_torch.kernels.mxfp4_matmul import KERNEL as MXFP4_KERNEL
 
 CODECS = {
@@ -123,6 +124,80 @@ def test_cuda_quantize_vs_plain():
         ops.m2xfp_quantize(x.half())
     with pytest.raises(ValueError, match="multiple of the 32"):
         ops.m2xfp_quantize(x[:, :11008 - 16].contiguous())
+
+
+# M off both tiles (8 and 32 rows) and the 16-byte stores; K off the 8-group
+# tile (96, 288) and the projections' K.
+QUANT_MS = [1, 7, 8, 9, 15, 16, 17, 63, 64, 65, 77, 129, 2048]
+QUANT_KS = [32, 96, 256, 288, 4096, 11008]
+
+
+def _quantize_vs_plain(x):
+    """One launch per call, and the streams torch.equal the plain version's
+    on the card."""
+    before = QUANTIZE_KERNEL.launches
+    got = ops.m2xfp_quantize(x)
+    assert QUANTIZE_KERNEL.launches == before + 1
+    want = ref.m2xfp_quantize_ref(x.T)
+    for s in ("codes", "scales", "meta"):
+        assert torch.equal(got[s], want[s]), (s, tuple(x.shape), x.dtype)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", QUANT_KS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quantize_shapes_vs_plain(dtype, k):
+    """The quantize engine at every M of QUANT_MS (both tiles, every store
+    width) from LLM-like activations; two calls give the same bytes."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(k)
+    x = (torch.randn(2048, k, generator=gen, device="cuda")
+         * torch.exp(0.8 * torch.randn(1, k, generator=gen, device="cuda"))
+         ).to(dtype)
+    for m in QUANT_MS:
+        got = _quantize_vs_plain(x[:m])
+        again = ops.m2xfp_quantize(x[:m])
+        assert all(torch.equal(got[s], again[s]) for s in got), m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 1),
+                                          (torch.bfloat16, 2),
+                                          (torch.bfloat16, 4),
+                                          (torch.float32, 1),
+                                          (torch.float32, 2)])
+def test_cuda_quantize_unaligned_vs_plain(dtype, offset):
+    """x a contiguous view at a storage offset that breaks the 16-byte
+    alignment: the same kernel with narrower loads, one launch, the plain
+    version's bytes, at both tiles."""
+    _need_cuda()
+    gen = torch.Generator("cuda").manual_seed(offset)
+    for m, k in ((77, 288), (2048, 4096)):
+        buf = (torch.randn(m * k + offset, generator=gen, device="cuda")
+               * 3).to(dtype)
+        x = buf[offset:].view(m, k)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        assert quantize_plan(x.data_ptr(), m, k)[0] == offset * buf.element_size()
+        _quantize_vs_plain(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quantize_edge_inputs_vs_plain(dtype):
+    """The edge rows of tests/test_torch_quantize_lanes.py (all-zero and
+    -0.0 groups, negatives that round to 0, group maxima at 4, 6 and 8
+    times 2^k and their neighbours, subnormal groups, bf16's largest
+    finite values): as they are (the 8-row tile) and stacked to 2048 rows
+    (the 32-row tile); two calls give the same bytes."""
+    _need_cuda()
+    from test_torch_quantize_lanes import edge_inputs
+    x = torch.from_numpy(edge_inputs()).to(dtype).to("cuda")
+    assert bool(torch.isfinite(x).all())
+    for xin in (x, x.repeat(64, 1)):
+        got = _quantize_vs_plain(xin)
+        again = ops.m2xfp_quantize(xin)
+        assert all(torch.equal(got[s], again[s]) for s in got)
 
 
 @pytest.mark.gpu
