@@ -44,7 +44,8 @@ printing JSON lines:
                  same assertions, and beside them the packed pages' bytes
                  against phase 3's pages at the same depth; then its
                  decode step split as in phase 3
-  5. guard    -- the serving guard on the same weights at full depth, with
+  5. guard    -- the serving guard on the first 16 of the same layers
+                 (GUARD_LAYERS), with
                  a bf16 and an m2xfp-packed KV cache: 12 requests (prompts
                  of 16-64 tokens, 16 new tokens, 8 slots) fault-free with
                  the guard on, equal to guard=False, then under a FaultPlan
@@ -76,8 +77,28 @@ printing JSON lines:
                  printed, not asserted (per-tensor activation scales depend
                  on which tokens share a launch), beside its decode step's
                  device time and its weights' bytes
-  7. serve    -- phase 3 with the mxfp4 codec, at 16 layers (MXFP4_LAYERS)
-  8. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
+  7. variants -- the attention variants (ROADMAP A6a, A6b) served at full
+                 width through the same engine, m2xfp weights from SEED
+                 (the QKV biases and qk-norm weights seeded too, not
+                 init's zeros and ones: repro_torch.testing.
+                 fill_attention_extras), with the codecs phase's traffic:
+                 qwen2-0.5b at all 24 layers (QKV bias, the tied
+                 151,936-row head, 128-column wk/wv), qwen3-8b at its first
+                 8 of 36 (qk-norm), and gemma2-9b at its first 8 of 42 (4
+                 local/global pairs, its window of 4096, soft-caps 50 and
+                 30, the tied 256,000-row head) with 128 positions and
+                 prompts of 96-160 tokens, so both its rings wrap (read
+                 from the caches' position tracks: each ring holds its
+                 slot's last positions; the positions each ring overwrote
+                 are printed); each with phase 3's assertions (7 launches
+                 of the m2xfp kernel per layer per engine launch, the guard
+                 healthy, chunks of 1 giving the same tokens); before each
+                 serve, the kernel at each of the model's projection shapes
+                 against its plain version (M = 8 and 64, rows equal
+                 across M, the split plan printed); then gemma2's decode
+                 step split as in phase 3
+  8. serve    -- phase 3 with the mxfp4 codec, at 8 layers (MXFP4_LAYERS)
+  9. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
                  the quantize engine on a 4097-point sweep of [-8, 8] (every
                  FP4 and FP6 code, midpoint and saturation) and the W4A4 GEMM
                  against an identity weight on random X streams (every
@@ -86,7 +107,7 @@ printing JSON lines:
                  (identity x on random streams: every code, meta field and
                  scale byte 0-250, subnormal weights included) equal to the
                  plain decoders
-  9. w4a4     -- the W4A4 datapath (quantize engine, then the fully packed
+  10. w4a4    -- the W4A4 datapath (quantize engine, then the fully packed
                  GEMM) through ``repro_torch.kernels`` for the seven
                  projections of one full-width paper-llama2-7b layer at M in
                  {1, 8, 64, 129, 2048}: streams byte-identical to the plain
@@ -100,7 +121,7 @@ printing JSON lines:
                  share_of_bound at every point); then the launch floor (the
                  event time of torch.zeros(1)) and the quantize engine's
                  kernel-only time at M = 8 from torch.profiler
-  10. flash   -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
+  11. flash   -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
                  layer's prefill): causal at S = 512 and 2048, S = 2048 with
                  a 512 window, with softcap 50 on q scaled by 8 (so scores
                  reach the cap), and with the last 64 keys invalid and a
@@ -142,10 +163,13 @@ MS = [1, 8, 64, 129]
 LAYERS, REQUESTS, TOKENS, CHUNK, SEED = 32, 16, 32, 8, 0
 N_SLOTS, MAX_LEN = 8, 512
 # The mxfp4 serve phase (an earlier path, same code as m2xfp's but the
-# codec) runs at half depth, so that the script stays well inside its time
-# limit beside the packed-KV phase (about 420 s of a 766 s run at full
-# depth on NVIDIA H100 80GB HBM3, 700.00 W).
-MXFP4_LAYERS = 16
+# codec) runs at a quarter of the depth, and the guard phase (an earlier
+# path) at half of it: with them at 16 and 32 layers and the variants
+# phase the script took 1145.8 s of its 1200 s limit on a slow host (guard
+# phase 304.9 s, mxfp4 77.9 s, variants 138.7 s; NVIDIA H100 80GB HBM3,
+# 700.00 W).
+MXFP4_LAYERS = 8
+GUARD_LAYERS = 16
 # The packed-KV serve phase (an earlier path since the guard phase came)
 # runs at a quarter of the depth: with it at full depth and the guard phase
 # the script took 1170 s of its 1200 s limit (packed-KV phase 540 s, guard
@@ -155,7 +179,7 @@ MXFP4_LAYERS = 16
 PACKED_KV_LAYERS = 8
 # Guard phase traffic: 12 requests (more than the 8 slots, so a quarantined
 # slot is reused), prompts drawn by SEED from 16..64 tokens, GUARD_TOKENS new
-# tokens each, on the m2xfp weights of the serve phase at full depth.
+# tokens each, on the first GUARD_LAYERS of the serve phase's m2xfp weights.
 GUARD_REQUESTS, GUARD_TOKENS, GUARD_PROMPTS = 12, 16, (16, 64)
 RECOVERY_STEPS = 3                  # GuardConfig's default
 # Codecs phase: the first CODEC_LAYERS layers; 8 requests (as many as the
@@ -164,6 +188,14 @@ CODEC_LAYERS = 8
 CODEC_TRAFFIC = (8, 16, (16, 64))           # requests, new tokens, prompts
 CODEC_ACTS = [(8, 4096), (64, 11008)]
 CODEC_WEIGHT_COLS = 512     # the CPU side of the Sg-EM search is slow at N
+# Variants phase: (arch, layers, positions per page, prompt lengths), with
+# the codecs phase's 8 requests and 16 new tokens. gemma2-9b's pages of 128
+# positions hold fewer than its prompts, so its local ring (window 4096,
+# min(4096, 128) positions) and its global ring both wrap, as the
+# reference's engine allows for a sliding-window configuration.
+VARIANTS = [("qwen2-0.5b", 24, MAX_LEN, (16, 64)),
+            ("qwen3-8b", 8, MAX_LEN, (16, 64)),
+            ("gemma2-9b", 8, 128, (96, 160))]
 # Kernel vs plain: |diff| <= sqrt(K) * 2^-24 * (|x| @ |Wdec|). Every product
 # is exact in f32 and the plain version rounds once, so the kernel's error
 # is its K f32 roundings, which add as a random walk: sqrt(K) * 2^-24 of the
@@ -253,6 +285,35 @@ def plant_fault(name: str, wp: dict) -> dict:
     return bad
 
 
+def kernel_vs_plain(label: str, kern, wp: dict, wdec, plain, x, m: int):
+    """``kern`` on the first ``m`` rows of ``x`` against ``plain`` on the
+    same rows, within TOLERANCE (``wdec`` the decoded weight). Returns
+    (the rows, the kernel's output, the tolerance, the largest ratio of
+    the difference to it, the largest absolute difference)."""
+    from repro_torch.kernels import ref
+    xm = x[:m].contiguous()
+    got = kern(xm, wp)
+    want = plain(xm, wp)
+    torch.cuda.synchronize()
+    tol = xm.shape[1] ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(xm.abs(),
+                                                           wdec.abs())
+    diff = (got - want).abs()
+    if bool((diff > tol).any()):
+        raise AssertionError(f"{label} M={m}: kernel outside {TOLERANCE} "
+                             f"of its plain version")
+    return (xm, got, tol, float((diff / tol.clamp_min(1e-38)).max()),
+            float(diff.max()))
+
+
+def assert_rows_independent(label: str, outs: dict, pairs) -> None:
+    """For each (small, big) of ``pairs``, the kernel's rows of M = small
+    are bit-equal to the first rows of M = big (``outs``: M -> output)."""
+    for small, big in pairs:
+        if not torch.equal(outs[small], outs[big][:small]):
+            raise AssertionError(f"{label}: rows of M={small} differ from "
+                                 f"the same rows of M={big}")
+
+
 def kernel_phase(timer, gen, device):
     from repro_torch.kernels import _build, layout, ref
     from repro_torch.kernels.m2xfp_matmul import KERNEL as M2XFP
@@ -280,19 +341,8 @@ def kernel_phase(timer, gen, device):
                             device=device).to(torch.bfloat16)
             outs = {}
             for m in MS:
-                xm = x[:m].contiguous()
-                got = kern(xm, wp)
-                want = plain(xm, wp)
-                torch.cuda.synchronize()
-                tol = k ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(xm.abs(),
-                                                             wdec.abs())
-                diff = (got - want).abs()
-                if bool((diff > tol).any()):
-                    raise AssertionError(
-                        f"{name} K={k} N={n} M={m}: kernel outside "
-                        f"{TOLERANCE} of its plain version")
-                ratio = float((diff / tol.clamp_min(1e-38)).max())
-                err = float(diff.max())
+                xm, got, tol, ratio, err = kernel_vs_plain(
+                    f"{name} K={k} N={n}", kern, wp, wdec, plain, x, m)
                 max_err = max(max_err, err)
                 outs[m] = got
                 if not torch.equal(kern(xm, wp), got):
@@ -330,12 +380,9 @@ def kernel_phase(timer, gen, device):
                     for key, t in (("ms", t_k), ("plain_ms", t_p),
                                    ("bound_ms", b_ms), ("library_ms", t_l)):
                         agg[key] += reps * t
-            for small in (1, 8):
-                for big in (64, 129):
-                    if not torch.equal(outs[small], outs[big][:small]):
-                        raise AssertionError(
-                            f"{name} K={k} N={n}: rows of M={small} differ "
-                            f"from the same rows of M={big}")
+            assert_rows_independent(
+                f"{name} K={k} N={n}", outs,
+                [(small, big) for small in (1, 8) for big in (64, 129)])
             emit("kernels", kernel=name, K=k, N=n, row_independent=True)
             del wp, wdec, wdec16, x, outs
         summary[name] = dict(
@@ -357,11 +404,14 @@ def kv_cache_bytes(caches) -> int:
 
 def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
                 layers=LAYERS, bf16_kv=None, params=None,
-                traffic=(REQUESTS, TOKENS, (16, 128))):
+                traffic=(REQUESTS, TOKENS, (16, 128)),
+                arch="paper-llama2-7b", max_len=MAX_LEN):
     """Serve ``traffic`` (requests, new tokens each, prompt lengths drawn
     by SEED from the range) through the port's engine (its guard on, as
-    by default), with a bf16 KV cache or one packed in ``kv_quant``. Every
-    launch counter is zeroed just before the run and read just after;
+    by default) on the first ``layers`` layers of ``arch`` with pages of
+    ``max_len`` positions, with a bf16 KV cache or one packed in
+    ``kv_quant``. Every launch counter is zeroed just before the run and
+    read just after;
     ``kern`` must have run 7 times per layer per engine launch and every
     other kernel not at all (``kern`` None: no kernel at all), and the
     guard must have stayed healthy with nothing quarantined, scrubbed or
@@ -376,7 +426,7 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
     from repro_torch.core.codecs import get_codec
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.prequant import init_packed_params
-    cfg = get_config("paper-llama2-7b", quant="serve", quant_format=codec,
+    cfg = get_config(arch, quant="serve", quant_format=codec,
                      kv_quant=kv_quant, n_layers=layers)
     n_requests, n_tokens, (lo, hi) = traffic
     pack_s = None
@@ -396,7 +446,7 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
         return np.argmax(logits, axis=-1)
 
     def run(chunk):
-        eng = ServeEngine(params, cfg, n_slots=N_SLOTS, max_len=MAX_LEN,
+        eng = ServeEngine(params, cfg, n_slots=N_SLOTS, max_len=max_len,
                           prefill_chunk=chunk, sample_fn=finite_greedy,
                           device=device)
         outs = eng.generate(prompts, n_tokens)
@@ -451,7 +501,7 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
     emit("serve", codec=codec, kv_quant=kv_quant, model=cfg.name,
          layers=layers,
          d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
-         n_slots=N_SLOTS, max_len=MAX_LEN, prefill_chunk=CHUNK,
+         n_slots=N_SLOTS, max_len=max_len, prefill_chunk=CHUNK,
          requests=len(prompts), tokens_out=st.generated_tokens,
          prefill_tokens=st.prefill_tokens, steps=st.steps,
          decode_steps=st.decode_steps, prefill_steps=st.prefill_steps,
@@ -535,8 +585,9 @@ def decode_breakdown(eng, device, kern, steps: int = 3):
         raise AssertionError(
             f"device time {total} ms per step exceeds the wall time "
             f"({wall * 1e3} ms, {wall_profiled * 1e3} ms profiled)")
-    emit("decode_breakdown", codec=eng.cfg.quant_format,
-         kv_quant=eng.cfg.kv_quant, layers=eng.cfg.n_layers, slots=b,
+    emit("decode_breakdown", model=eng.cfg.name,
+         codec=eng.cfg.quant_format, kv_quant=eng.cfg.kv_quant,
+         layers=eng.cfg.n_layers, slots=b,
          wall_ms=wall * 1e3, profiled_wall_ms=wall_profiled * 1e3,
          device_ms=total, packed_gemm_ms=gemm, gemm_name_filter=tag,
          other_device_ms=total - gemm, device_idle_share=idle,
@@ -679,8 +730,9 @@ def _plan_faults(log, n_steps: int):
 
 
 def guard_phase(params, device, kern, kernels) -> int:
-    """The serving guard at full width and depth (m2xfp weights ``params``
-    from phase 3), with a bf16 and an m2xfp-packed KV cache: the traffic
+    """The serving guard at full width on the first GUARD_LAYERS layers of
+    the m2xfp weights ``params`` from phase 3, with a bf16 and an
+    m2xfp-packed KV cache: the traffic
     fault-free with the guard on (equal to guard=False), then under a
     FaultPlan (NaN logits, a poisoned KV page, a transient failure, a delay
     past the armed watchdog): exactly the planned slots' requests are
@@ -693,6 +745,7 @@ def guard_phase(params, device, kern, kernels) -> int:
     from repro_torch.core.codecs import PackedTensor, validate_packed_tree
     from repro_torch.serve import GuardConfig, verify_packed_tree
     from repro_torch.testing import FaultPlan
+    params = dict(params, layers=params["layers"][:GUARD_LAYERS])
     rng = np.random.default_rng(SEED)
     lo, hi = GUARD_PROMPTS
     vocab = get_config("paper-llama2-7b").vocab_size
@@ -702,7 +755,7 @@ def guard_phase(params, device, kern, kernels) -> int:
     for kv_quant in ("none", "m2xfp"):
         cfg = get_config("paper-llama2-7b", quant="serve",
                          quant_format="m2xfp", kv_quant=kv_quant,
-                         n_layers=LAYERS)
+                         n_layers=GUARD_LAYERS)
         clean = _guard_run(params, cfg, prompts, device)
         off = _guard_run(params, cfg, prompts, device, guard=False)
         outs = [r.output for r in clean["reqs"]]
@@ -750,10 +803,11 @@ def guard_phase(params, device, kern, kernels) -> int:
                          and set(h[t_nan:t_delay + RECOVERY_STEPS])
                          == {"degraded"}
                          and h[t_delay + RECOVERY_STEPS] == "healthy"),
-            "launches": (launches == 7 * LAYERS * eng.stats.steps
+            "launches": (launches == 7 * GUARD_LAYERS * eng.stats.steps
                          and not any(others.values())),
         }
-        emit("guard", kv_quant=kv_quant, layers=LAYERS, requests=len(reqs),
+        emit("guard", kv_quant=kv_quant, layers=GUARD_LAYERS,
+             requests=len(reqs),
              n_slots=N_SLOTS, max_len=MAX_LEN, prefill_chunk=CHUNK,
              new_tokens=GUARD_TOKENS, plan=plan.describe(),
              watchdog_s=watchdog, delay_s=delay, fired=run["fired"],
@@ -766,7 +820,7 @@ def guard_phase(params, device, kern, kernels) -> int:
              wall_s={"guard_on": clean["wall_s"], "guard_off": off["wall_s"],
                      "faulted": run["wall_s"]},
              kernel=kern.name, launches=launches,
-             launches_expected=7 * LAYERS * eng.stats.steps,
+             launches_expected=7 * GUARD_LAYERS * eng.stats.steps,
              checks=checks)
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
@@ -785,7 +839,7 @@ def guard_phase(params, device, kern, kernels) -> int:
     validate_ms = (time.perf_counter() - t0) * 1e3
     if intact:
         raise AssertionError(f"intact weights reported: {intact}")
-    layer = 17 % LAYERS
+    layer = 17 % GUARD_LAYERS
     wq = params["layers"][layer]["attn"]["wq"]
     at = tuple(i % n for i, n in zip((3, 100), wq.streams["scales"].shape))
     bad_scales = wq.streams["scales"].clone()
@@ -805,8 +859,9 @@ def guard_phase(params, device, kern, kernels) -> int:
                            .streams["scales"], expect) and all(
         torch.equal(fixed["layers"][i]["attn"]["wq"].streams["scales"],
                     params["layers"][i]["attn"]["wq"].streams["scales"])
-        for i in range(LAYERS) if i != layer)
-    emit("guard", check="weights", layers=LAYERS, validate_ms=validate_ms,
+        for i in range(GUARD_LAYERS) if i != layer)
+    emit("guard", check="weights", layers=GUARD_LAYERS,
+         validate_ms=validate_ms,
          intact_report=intact, planted=f"layer {layer} wq scales{at} = 255",
          report=report, repairs=repairs, repaired_bytes_equal=repaired,
          report_after_repair=validate_packed_tree(fixed))
@@ -992,6 +1047,127 @@ def codecs_phase(params, timer, gen, device, kern, kernels) -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+def variant_gemm_check(timer, name: str, params: dict, kern, device):
+    """``kern`` on the distinct projection shapes of layer 0 of ``params``
+    (a packed model), x random bf16 at M = 8 and 64: kernel_vs_plain,
+    assert_rows_independent, the split plan and the event time at M = 8
+    beside the bound. These launches are not counted as the path's."""
+    from repro_torch.core.codecs import PackedTensor
+    from repro_torch.kernels import _build, ref
+    lp = params["layers"][0]
+    shapes = {}                  # (K, N) -> (names, the first one's streams)
+    for part, names in (("attn", ("wq", "wk", "wv", "wo")),
+                        ("ffn", ("gate", "up", "down"))):
+        for w in names:
+            if isinstance(lp[part][w], PackedTensor):
+                shapes.setdefault(tuple(lp[part][w].shape),
+                                  ([], lp[part][w].streams))[0].append(w)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for (k, n), (names, streams) in shapes.items():
+        label = f"{name} {names} K={k} N={n}"
+        wdec = ref.decode_w_sgem_ref(streams)
+        x = torch.randn(64, k, generator=gen, device=device).to(
+            torch.bfloat16)
+        outs, ratio = {}, 0.0
+        for m in (8, 64):
+            _, outs[m], _, r, _ = kernel_vs_plain(
+                label, kern, streams, wdec, ref.m2xfp_matmul_ref, x, m)
+            ratio = max(ratio, r)
+        assert_rows_independent(label, outs, [(8, 64)])
+        x8 = x[:8].contiguous()
+        t_k = timer(lambda: kern(x8, streams))
+        b_ms, b_by, _ = bound(8, k, n, sum(s.nbytes
+                                           for s in streams.values()))
+        emit("variants", model=name, check="gemm_shape", weights=names,
+             K=k, N=n, split_k=_build.split_k(k, n),
+             tolerance=TOLERANCE, max_ratio_to_tolerance=ratio,
+             row_independent=True, kernel_ms_at_m8=t_k, bound_ms=b_ms,
+             bound_by=b_by, share_of_bound=b_ms / t_k)
+        del wdec, x, outs
+
+
+def ring_overwrites(eng) -> dict:
+    """Per kind of layer (``local_<window>`` or ``global``), read from the
+    position tracks of ``eng``'s caches after a serve: the ring's width,
+    the positions each slot wrote since its last admit (the largest it
+    holds, plus one: its request's prompt and every generated token but
+    the last, and one more where the slot sat idle through a later
+    decode launch, which writes every slot) and the entries that
+    overwrote older ones (the positions written beyond the width, summed
+    over slots; one layer's count). Every slot's ring must hold exactly
+    its last ``min(written, width)`` positions, each at ``position %
+    width``, and every layer of a kind the same."""
+    from repro_torch.models.model import layer_windows
+    out = {}
+    for i, (window, cache) in enumerate(zip(layer_windows(eng.cfg),
+                                            eng.caches["layers"])):
+        pos = cache["pos"].cpu()
+        width = pos.shape[1]
+        written = (pos.max(dim=1).values + 1).tolist()
+        for slot, n in enumerate(written):
+            held = torch.arange(max(0, n - width), n, dtype=pos.dtype)
+            want = torch.full((width,), -1, dtype=pos.dtype)
+            want[held % width] = held
+            if not torch.equal(pos[slot], want):
+                raise AssertionError(f"layer {i} slot {slot}: the ring does "
+                                     f"not hold the last {len(held)} of "
+                                     f"{n} positions")
+        kind = f"local_{window}" if window else "global"
+        ring = dict(positions=width, written_per_slot=written,
+                    overwritten_per_layer=sum(max(0, n - width)
+                                              for n in written))
+        seen = out.setdefault(kind, dict(ring, layers=0))
+        if {k: seen[k] for k in ring} != ring:
+            raise AssertionError(f"layer {i}: its {kind} ring differs from "
+                                 f"the earlier {kind} layers'")
+        seen["layers"] += 1
+    return out
+
+
+def variants_phase(timer, device, kern, kernels) -> int:
+    """Pack each of VARIANTS (m2xfp weights on the card from SEED), run
+    variant_gemm_check on its projection shapes, serve it with
+    serve_phase's assertions and print the ring overwrites; then
+    gemma2-9b's decode step split as in phase 3. Returns the launches of
+    ``kern`` in the serves."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.prequant import init_packed_params
+    from repro_torch.testing import attention_extras, fill_attention_extras
+    launches = 0
+    for arch, layers, max_len, prompts in VARIANTS:
+        cfg = get_config(arch, quant="serve", n_layers=layers)
+        params = fill_attention_extras(init_packed_params(
+            torch.Generator(device=device).manual_seed(SEED), cfg, device),
+            cfg, SEED)
+        variant_gemm_check(timer, arch, params, kern, device)
+        eng, n, _ = serve_phase(
+            "m2xfp", device, kern, kernels, layers=layers, params=params,
+            traffic=CODEC_TRAFFIC[:2] + (prompts,), arch=arch,
+            max_len=max_len)
+        del params
+        launches += n
+        cfg = eng.cfg
+        rings = ring_overwrites(eng)
+        emit("variants", model=cfg.name, layers=layers, max_len=max_len,
+             features=dict(qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+                           tie_embeddings=cfg.tie_embeddings,
+                           sliding_window=cfg.sliding_window,
+                           local_global=cfg.local_global,
+                           attn_softcap=cfg.attn_softcap,
+                           final_softcap=cfg.final_softcap),
+             seeded_leaves=sorted(attention_extras(cfg)),
+             has_lm_head="lm_head" in eng.params, rings=rings)
+        if cfg.sliding_window:
+            if not all(r["overwritten_per_layer"] > 0
+                       for r in rings.values()):
+                raise AssertionError(f"{arch}: a ring did not wrap: {rings}")
+            decode_breakdown(eng, device, kern)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1443,12 +1619,15 @@ def main() -> int:
     lap("guard")
     ideal_launches = codecs_phase(params, timer, gen, device, M2XFP,
                                   kernels)
-    summary["m2xfp_matmul"]["launches"] = (launches + kv_launches
-                                           + guard_launches + ideal_launches)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     lap("codecs")
+    variant_launches = variants_phase(timer, device, M2XFP, kernels)
+    summary["m2xfp_matmul"]["launches"] = (
+        launches + kv_launches + guard_launches + ideal_launches
+        + variant_launches)
+    lap("variants")
     eng, summary["mxfp4_matmul"]["launches"], _ = serve_phase(
         "mxfp4", device, MXFP4, kernels, layers=MXFP4_LAYERS)
     decode_breakdown(eng, device, MXFP4)

@@ -4,9 +4,16 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-ARCHS = ("paper-llama2-7b",)
+ARCHS = ("qwen2.5-14b", "qwen2-0.5b", "gemma2-9b", "qwen3-8b",
+         "paper-llama2-7b")
 
-_MODULES = {"paper-llama2-7b": "paper_llama2_7b"}
+_MODULES = {
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "gemma2-9b": "gemma2_9b",
+    "qwen3-8b": "qwen3_8b",
+    "paper-llama2-7b": "paper_llama2_7b",
+}
 
 
 def _module(name: str):

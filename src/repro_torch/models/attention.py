@@ -1,10 +1,17 @@
 """GQA attention over a per-slot KV cache, bf16 or packed (port of the
-decode and chunked-prefill paths of repro.models.attention).
+decode and chunked-prefill paths of repro.models.attention), with the
+reference's variants: QKV bias (qwen2), qk-norm (qwen3), sliding windows
+and a tanh soft-cap on the scores (gemma2).
 
 The cache of one layer is ``{"k": (B, W, nkv, hd), "v": (B, W, nkv, hd),
 "pos": (B, W) int32}``: batch row b is request slot b, a ring buffer of W
 positions with its own position track (-1 = empty), so each slot is
-admitted and evicted independently (continuous batching). With
+admitted and evicted independently (continuous batching). A windowed
+layer's ring holds ``min(window, max_len)`` positions, and the ring width
+is the window: a query writes its own K/V before it attends, so the page
+holds exactly the last W positions of its slot (an admit resets the rest
+to -1), and no key ``window`` or more positions back is ever in it. Layers
+of one model may have rings of different W. With
 ``cfg.kv_quant`` set to a codec of ``kv_codecs()``, "k" and "v" are each a
 dict of that codec's u8 streams with the same leading (B, W, nkv) axes
 (``models/kvquant.py``): new tokens are encoded as they are written and the
@@ -15,16 +22,17 @@ which returns a new cache, the port writes the cache in place.
 ``index % W`` and attend against the whole page. Decode calls it once;
 chunked prefill projects QKV (and encodes packed K/V) for the whole chunk
 at once and then calls it position by position with the same shapes, so
-every position's result is bit-identical to sequential decode. Scores and the probability-weighted
-sum run in f32 on bf16-rounded operands, as the reference does. QKV bias,
-qk-norm, sliding windows and softcaps are not ported yet.
+every position's result is bit-identical to sequential decode, also
+where a window is narrower than the chunk (the ring's overwrite order is
+decode's). Scores and the probability-weighted sum run in f32 on
+bf16-rounded operands, as the reference does.
 """
 from __future__ import annotations
 
 import torch
 
 from .kvquant import kv_cache_spec, kv_decode, kv_encode, kv_page_write
-from .layers import apply_rope
+from .layers import apply_rope, rms_norm, softcap
 from .quant import init_linear, quantized_matmul
 
 NEG_INF = -2.0e38
@@ -35,21 +43,38 @@ __all__ = [
 
 
 def init_attention(gen: torch.Generator, cfg, device="cuda") -> dict:
+    """Projections, plus the bf16 QKV biases (zeros) under ``qkv_bias``
+    and the f32 per-head-dim q/k norm weights (ones) under ``qk_norm``."""
     d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    return {
+    p = {
         "wq": init_linear(gen, d, nh * hd, device),
         "wk": init_linear(gen, d, nkv * hd, device),
         "wv": init_linear(gen, d, nkv * hd, device),
         "wo": init_linear(gen, nh * hd, d, device),
     }
+    if cfg.qkv_bias:
+        for name, n in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
+            p[name] = torch.zeros(n, dtype=torch.bfloat16, device=device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.ones(hd, dtype=torch.float32, device=device)
+    return p
 
 
 def _project_qkv(p, x, cfg, positions, quant):
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = quantized_matmul(x, p["wq"], quant).reshape(b, s, nh, hd)
-    k = quantized_matmul(x, p["wk"], quant).reshape(b, s, nkv, hd)
-    v = quantized_matmul(x, p["wv"], quant).reshape(b, s, nkv, hd)
+    q = quantized_matmul(x, p["wq"], quant)
+    k = quantized_matmul(x, p["wk"], quant)
+    v = quantized_matmul(x, p["wv"], quant)
+    if cfg.qkv_bias:                       # bf16 + bf16, one rounding
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, nh, hd)
+    k = k.reshape(b, s, nkv, hd)
+    v = v.reshape(b, s, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -71,8 +96,10 @@ def _attend_one(q, rows, out_dtype, cfg, cache, index, valid=None):
     q (B,1,nh,hd); ``rows`` = ``_cache_rows`` of one token per slot
     (leading (B, 1)); ``index`` (B,) absolute positions; ``valid`` (B,)
     bool or None -- rows where it is False leave their cache untouched and
-    return garbage context for the caller to discard. Updates ``cache`` in
-    place; returns ctx (B,1,nh*hd)."""
+    return garbage context for the caller to discard. The page's width is
+    the layer's window (module docstring). The scores are scaled by
+    ``hd**-0.5``, then soft-capped by ``cfg.attn_softcap``. Updates
+    ``cache`` in place; returns ctx (B,1,nh*hd)."""
     b = q.shape[0]
     fmt = cfg.kv_quant
     w = cache["pos"].shape[1]
@@ -92,6 +119,7 @@ def _attend_one(q, rows, out_dtype, cfg, cache, index, valid=None):
     qh = q.reshape(b, nkv, g, hd).to(torch.bfloat16).to(torch.float32)
     sc = torch.einsum("bkgd,bwkd->bkgw", qh,
                       k.to(torch.float32)) * (hd ** -0.5)
+    sc = softcap(sc, cfg.attn_softcap)
     idx = index[:, None]
     valid_kv = (pos >= 0) & (pos <= idx)                         # (B, W)
     sc = torch.where(valid_kv[:, None, None, :], sc, NEG_INF)
@@ -136,10 +164,13 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg, cache: dict,
     return quantized_matmul(torch.cat(ctxs, dim=1), p["wo"], quant)
 
 
-def init_cache(cfg, batch: int, max_len: int, device="cuda") -> dict:
-    """Empty per-slot cache of ``max_len`` positions for ``batch`` slots:
-    bf16 pages, or zeroed packed pages of ``cfg.kv_quant``."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+def init_cache(cfg, batch: int, max_len: int, window: int = 0,
+               device="cuda") -> dict:
+    """Empty per-slot cache for ``batch`` slots, a ring of
+    ``min(window, max_len)`` positions (``max_len`` when ``window`` is 0,
+    global): bf16 pages, or zeroed packed pages of ``cfg.kv_quant``."""
+    w = min(window, max_len) if window else max_len
+    shape = (batch, w, cfg.n_kv_heads, cfg.hd)
 
     def page():
         if cfg.kv_quant != "none":
@@ -148,6 +179,6 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> dict:
     return {
         "k": page(),
         "v": page(),
-        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+        "pos": torch.full((batch, w), -1, dtype=torch.int32,
                           device=device),
     }

@@ -1,7 +1,8 @@
-"""Shared model layers: norms, rotary embeddings, MLP, embedding table
-(port of repro.models.layers). bf16 rounds at the reference's points: the
-norm and the rotation compute in f32 and cast back to the input dtype, and
-``silu`` runs in f32 before the cast to bf16.
+"""Shared model layers: norms, rotary embeddings, logit soft-capping, MLP,
+embedding table (port of repro.models.layers). bf16 rounds at the
+reference's points: the norm, the rotation and the soft-cap compute in f32
+and cast back to the input dtype, and ``silu`` runs in f32 before the cast
+to bf16.
 
 The norm's sum of squares is folded in halves with elementwise adds, in an
 order fixed by the width alone. A library reduction on the card picks its
@@ -10,13 +11,16 @@ prefill could differ by an ulp from the same row normed among B in decode,
 and one ulp can flip an m2xfp top-1 and an FP4 rounding downstream."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.core.dtypes import div_const
 from .quant import init_linear, quantized_matmul
 
 __all__ = [
-    "rms_norm", "rope_freqs", "apply_rope", "init_mlp", "mlp_apply",
-    "init_embedding",
+    "rms_norm", "rope_freqs", "apply_rope", "softcap", "init_mlp",
+    "mlp_apply", "init_embedding",
 ]
 
 
@@ -57,6 +61,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma2-style logit soft-capping: ``cap * tanh(x / cap)`` in f32,
+    cast back to ``x``'s dtype; ``cap`` None returns ``x``. The division is
+    ``div_const``'s, so the card divides as the CPU does."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(div_const(x.to(torch.float32), cap))).to(
+        x.dtype)
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, device="cuda") -> dict:

@@ -1,9 +1,12 @@
 """Dense decoder LM of the serve path (port of the dense family of
-repro.models.model).
+repro.models.model, with its attention variants: QKV bias, qk-norm, tied
+embeddings, sliding windows, local/global layers and both soft-caps).
 
 Parameters are a dict: ``embed`` (V, d) bf16, ``final_norm`` (d,) f32,
-``lm_head`` (d, V) bf16 and ``layers``, a list of per-layer dicts
-``{attn_norm, attn: {wq, wk, wv, wo}, ffn_norm, ffn: {gate, up, down}}``.
+``lm_head`` (d, V) bf16 (absent under ``tie_embeddings``: the head is
+``embed.T``) and ``layers``, a list of per-layer dicts
+``{attn_norm, attn: {wq, wk, wv, wo[, bq, bk, bv][, q_norm, k_norm]},
+ffn_norm, ffn: {gate, up, down}}``.
 The reference stacks the layers on a leading axis and scans over them; the
 port loops over the list, so each layer can be packed and freed on its own
 (``repro_torch.convert`` maps one layout to the other).
@@ -21,33 +24,28 @@ import torch
 from repro_torch.core.codecs import get_codec, packed_codecs
 from . import attention as attn
 from .kvquant import kv_codec
-from .layers import init_embedding, init_mlp, mlp_apply, rms_norm
+from .layers import init_embedding, init_mlp, mlp_apply, rms_norm, softcap
 from .numerics import dot_f32acc
 from .quant import pack_serving_weight
 
 __all__ = [
     "init_params", "init_head", "init_layer", "init_caches", "decode_step",
     "prefill_chunk", "pack_layer_for_serving", "pack_params_for_serving",
+    "layer_windows",
 ]
 
 _PACK_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
 def check_supported(cfg) -> None:
-    """Raise for configuration features the port has not taken yet, and
+    """Raise ``NotImplementedError`` for configuration features the port
+    has not taken yet (other families, experts, embedding input), and
     ``ValueError`` for a served ``quant_format`` with no packed path
     (naming ``packed_codecs()``) or a ``kv_quant`` codec with no packed KV
     path (naming ``kv_codecs()``), in the reference's words."""
     missing = [name for name, on in (
         (f"family={cfg.family!r}", cfg.family != "dense"),
         ("experts", cfg.is_moe),
-        ("sliding_window", cfg.sliding_window is not None),
-        ("local_global", cfg.local_global),
-        ("attn_softcap", cfg.attn_softcap is not None),
-        ("final_softcap", cfg.final_softcap is not None),
-        ("qk_norm", cfg.qk_norm),
-        ("qkv_bias", cfg.qkv_bias),
-        ("tie_embeddings", cfg.tie_embeddings),
         (f"input_mode={cfg.input_mode!r}", cfg.input_mode != "tokens"),
     ) if on]
     if missing:
@@ -67,16 +65,18 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 def init_head(gen: torch.Generator, cfg, device="cuda") -> dict:
-    """Embedding, final norm and LM head (drawn before the layers)."""
+    """Embedding, final norm and LM head (drawn before the layers); no
+    ``lm_head`` under ``tie_embeddings``."""
     check_supported(cfg)
-    embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, device)
-    head = init_embedding(gen, cfg.vocab_size, cfg.d_model, device)
-    return {
-        "embed": embed,
+    out = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, device),
         "final_norm": torch.ones(cfg.d_model, dtype=torch.float32,
                                  device=device),
-        "lm_head": head.T.contiguous(),
     }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                                        device).T.contiguous()
+    return out
 
 
 def init_layer(gen: torch.Generator, cfg, device="cuda") -> dict:
@@ -98,12 +98,25 @@ def init_params(gen: torch.Generator, cfg, device="cuda") -> dict:
     return params
 
 
+def layer_windows(cfg) -> list:
+    """Each layer's window as a plain int, 0 for a global layer (the
+    reference's values): under ``local_global`` the even layers are local
+    with ``sliding_window or 4096``; with ``sliding_window`` alone every
+    layer is windowed; else all are global."""
+    if cfg.local_global:
+        local = cfg.sliding_window or 4096
+        return [local if i % 2 == 0 else 0 for i in range(cfg.n_layers)]
+    return [cfg.sliding_window or 0] * cfg.n_layers
+
+
 def init_caches(cfg, batch: int, max_len: int, device="cuda") -> dict:
-    """Per-slot KV caches of every layer (``attention.init_cache``): bf16,
-    or packed in ``cfg.kv_quant``."""
+    """Per-slot KV caches of every layer (``attention.init_cache``), each a
+    ring of ``min(window, max_len)`` positions for its layer's window:
+    bf16, or packed in ``cfg.kv_quant``. The reference's local/global
+    stacks are this list's even and odd layers."""
     check_supported(cfg)
-    return {"layers": [attn.init_cache(cfg, batch, max_len, device)
-                       for _ in range(cfg.n_layers)]}
+    return {"layers": [attn.init_cache(cfg, batch, max_len, w, device)
+                       for w in layer_windows(cfg)]}
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +130,8 @@ def _ffn(lp, h, cfg):
 
 def _logits(params, cfg, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return dot_f32acc(h, params["lm_head"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return softcap(dot_f32acc(h, head), cfg.final_softcap)
 
 
 def decode_step(params: dict, cfg, batch: dict, caches: dict,
@@ -170,7 +184,7 @@ def pack_layer_for_serving(layer: dict, fmt: str) -> dict:
 
 def pack_params_for_serving(params: dict, cfg) -> dict:
     """Dense params -> packed streams of ``cfg.quant_format`` for every
-    GEMM weight; embedding, LM head and norms stay as they are."""
+    GEMM weight; embedding, LM head, norms and biases stay as they are."""
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = [pack_layer_for_serving(lp, cfg.quant_format)
                      for lp in params["layers"]]

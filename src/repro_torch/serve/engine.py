@@ -210,8 +210,12 @@ class ServeEngine:
             EngineGuard(gcfg) if gcfg is not None else None
         self.default_ttl_steps = default_ttl_steps
         self.source_params = source_params
-        self.scheduler = SlotScheduler(n_slots, max_queue=max_queue,
-                                       max_prompt_len=max_len)
+        # sliding-window configs accept prompts longer than the page (the
+        # reference's rule: with local/global layers the global rings wrap
+        # too)
+        self.scheduler = SlotScheduler(
+            n_slots, max_queue=max_queue,
+            max_prompt_len=None if cfg.sliding_window else max_len)
         self.stats = ServeStats(n_slots=n_slots)
 
         if verify_weights:
@@ -239,12 +243,14 @@ class ServeEngine:
 
         Raises ``ValueError`` on an invalid request (empty prompt,
         non-positive ``max_new_tokens``, prompt + generation beyond
-        ``max_len``), :class:`AdmissionError` when the queue is full
+        ``max_len`` unless ``cfg.sliding_window`` is set),
+        :class:`AdmissionError` when the queue is full
         (counted as shed), :class:`EngineFailedError` once the engine's
         fault budget is exhausted."""
         if self.guard:
             self.guard.check_alive()
-        if prompt and len(prompt) + max_new_tokens > self.max_len:
+        if prompt and len(prompt) + max_new_tokens > self.max_len \
+                and not self.cfg.sliding_window:
             raise ValueError(
                 f"prompt+generation {len(prompt)}+{max_new_tokens} exceeds "
                 f"cache capacity {self.max_len}")

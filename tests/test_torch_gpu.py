@@ -4,9 +4,11 @@ and flash attention), the packed KV cache's encode and decode against the
 same calls on the CPU, the engine's launches, chunked prefill against
 sequential decode at full width, with bf16 and packed KV caches, and the
 serving guard (its sentinels and stream validation against the CPU, and
-quarantine with the survivors bit-identical). Each decides inside its body
-whether there is a CUDA device and skips without one. This file imports no
-JAX, so it also runs where only the port is installed:
+quarantine with the survivors bit-identical), and the attention variants
+(soft-caps and the tied head against the CPU, the guard on rings of two
+widths, chunked prefill on gemma2-9b and qwen3-8b). Each decides inside
+its body whether there is a CUDA device and skips without one. This file
+imports no JAX, so it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -529,12 +531,44 @@ def test_engine_prefill_launches_bitexact_vs_decode(fmt, kv_quant,
     the engine on."""
     _need_cuda()
     from repro_torch.configs import get_config
+    _check_engine_prefill_launches(
+        get_config("paper-llama2-7b", quant="serve", quant_format=fmt,
+                   kv_quant=kv_quant), 512, 3, monkeypatch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,max_len,n_launches", [("gemma2-9b", 64, 10),
+                                                     ("qwen3-8b", 512, 3),
+                                                     ("qwen2-0.5b", 512, 3)])
+def test_engine_prefill_launches_bitexact_vs_decode_variants(
+        arch, max_len, n_launches, monkeypatch):
+    """The same on full-width gemma2-9b (local/global layers, both
+    soft-caps, the tied 256,000-row head) with 64 positions over its first
+    10 launches, which carry the long prompts past position 64, so its
+    local and global rings wrap; on qwen3-8b (qk-norm); and on qwen2-0.5b
+    (QKV bias, the tied 151,936-row head); all at 2 layers, with seeded
+    biases and qk-norm weights. The tied head's cuBLAS product must give a
+    row the same bits at 64 rows as at 8."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    eng = _check_engine_prefill_launches(
+        get_config(arch, quant="serve", n_layers=2), max_len, n_launches,
+        monkeypatch)
+    if eng.cfg.sliding_window:
+        assert int(eng._index.max()) > max_len
+
+
+def _check_engine_prefill_launches(cfg, max_len: int, n_launches: int,
+                                   monkeypatch):
+    """test_engine_prefill_launches_bitexact_vs_decode on ``cfg`` with
+    pages of ``max_len`` positions, over the first ``n_launches`` launches
+    (all prefill), with the QKV biases and qk-norm weights ``cfg`` has
+    seeded (``fill_attention_extras``). Returns the engine."""
     from repro_torch.serve import engine
     from repro_torch.serve.prequant import init_packed_params
-    cfg = get_config("paper-llama2-7b", quant="serve", quant_format=fmt,
-                     kv_quant=kv_quant)
-    params = init_packed_params(torch.Generator("cuda").manual_seed(0), cfg,
-                                "cuda")
+    from repro_torch.testing import fill_attention_extras
+    params = fill_attention_extras(init_packed_params(
+        torch.Generator("cuda").manual_seed(0), cfg, "cuda"), cfg)
     rng = np.random.default_rng(0)
     prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
                for n in rng.choice(np.arange(16, 129), 16)]
@@ -549,17 +583,18 @@ def test_engine_prefill_launches_bitexact_vs_decode(fmt, kv_quant,
         return got
 
     monkeypatch.setattr(engine, "prefill_chunk", shadowed)
-    eng = engine.ServeEngine(params, cfg, n_slots=8, max_len=512,
+    eng = engine.ServeEngine(params, cfg, n_slots=8, max_len=max_len,
                              prefill_chunk=8, device="cuda")
     for p in prompts:
         eng.submit(p, 32)
-    while len(launches) < 3:
+    while len(launches) < n_launches:
         eng.step()
-    assert eng.stats.prefill_steps == 3
+    assert eng.stats.prefill_steps == n_launches
     for i, (first, same) in enumerate(launches):
         assert first is None, f"launch {i + 1}: first op whose rows " \
                               f"differ: {first}"
         assert same, f"launch {i + 1}: logits differ"
+    return eng
 
 
 def _smoke_params(fmt):
@@ -752,6 +787,101 @@ def test_cuda_quarantine_keeps_survivors_bit_identical(kv_quant):
             summary["scrubs"]) == (2, 1, 0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["none", "m2xfp"])
+def test_cuda_probe_and_scrub_mixed_width_equal_cpu(kv_quant):
+    """gemma2-9b at full width, 2 layers, 8 slots and 4608 positions: a
+    local ring of 4096 and a global ring of 4608. On random pages with NaNs
+    or 255 scale bytes planted in both rings, probe_kv on the card counts
+    what it counts on the CPU, and ``_reset_slot(scrub=True)`` of two slots
+    leaves the CPU's bytes in every page and position track."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.engine import _reset_slot
+    from repro_torch.serve.guard import probe_kv
+    cfg = get_config("gemma2-9b", quant="serve", kv_quant=kv_quant,
+                     n_layers=2)
+    gen = torch.Generator("cuda").manual_seed(9)
+    caches = init_caches(cfg, 8, 4608, "cuda")
+    assert [c["pos"].shape[1] for c in caches["layers"]] == [4096, 4608]
+    for layer in caches["layers"]:
+        layer["pos"].copy_(torch.randint(0, 4608, layer["pos"].shape,
+                                         generator=gen, device="cuda"))
+        for name in ("k", "v"):
+            page = layer[name]
+            for s, t in (page.items() if isinstance(page, dict)
+                         else [("", page)]):
+                if t.dtype == torch.bfloat16:
+                    t.copy_(torch.randn(t.shape, generator=gen,
+                                        device="cuda"))
+                    t[torch.rand(t.shape, generator=gen,
+                                 device="cuda") < 1e-7] = float("nan")
+                else:
+                    t.copy_(torch.randint(0, 255 if s == "scales" else 256,
+                                          t.shape, generator=gen,
+                                          device="cuda", dtype=torch.uint8))
+                    if s == "scales":
+                        t[torch.rand(t.shape, generator=gen,
+                                     device="cuda") < 1e-5] = 255
+    cpu = _to_cpu(caches)
+    got = probe_kv(caches, 8)
+    assert int(got.sum()) > 0
+    assert torch.equal(got.cpu(), probe_kv(cpu, 8))
+    for slot in (2, 5):
+        _reset_slot(caches, slot, scrub=True)
+        _reset_slot(cpu, slot, scrub=True)
+    assert torch.equal(probe_kv(caches, 8).cpu(), probe_kv(cpu, 8))
+    for i, (a, b) in enumerate(zip(caches["layers"], cpu["layers"])):
+        for name in a:
+            pa, pb = (a[name], b[name]) if isinstance(a[name], dict) \
+                else ({"": a[name]}, {"": b[name]})
+            for s in pa:
+                assert torch.equal(pa[s].cpu().view(torch.uint8),
+                                   pb[s].view(torch.uint8)), (i, name, s)
+
+
+@pytest.mark.gpu
+def test_cuda_softcap_and_tied_head_equal_cpu():
+    """gemma2-9b's final norm, tied 256,000-row head and final soft-cap on
+    the card against the CPU, on the same bf16 embedding and residual rows:
+    within the GEMM's expected f32 rounding, sqrt(K) * 2^-24 * (|h| @ |E|^T)
+    (chip_smoke's TOLERANCE; the cap's slope is at most 1), plus
+    SOFTCAP_ULPS ulps for the two tanh implementations; a row gets the same
+    bits among 64 rows as among 8 (chunked prefill == decode). And the
+    soft-cap alone on scores and logits within SOFTCAP_ULPS ulps."""
+    _need_cuda()
+    from test_torch_variants import SOFTCAP_ULPS, softcap_input
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import rms_norm, softcap
+    from repro_torch.models.model import _logits
+    for cap in (30.0, 50.0):
+        x = torch.from_numpy(softcap_input())
+        want = softcap(x, cap)
+        got = softcap(x.cuda(), cap).cpu()
+        ulps = (got - want).abs() / torch.from_numpy(
+            np.spacing(want.abs().numpy()))
+        assert float(ulps.max()) <= SOFTCAP_ULPS, (cap, float(ulps.max()))
+    cfg = get_config("gemma2-9b", quant="serve", n_layers=0)
+    gen = torch.Generator("cuda").manual_seed(12)
+    params = {"embed": (torch.randn(cfg.vocab_size, cfg.d_model,
+                                    generator=gen, device="cuda")
+                        * 0.02).to(torch.bfloat16),
+              "final_norm": torch.ones(cfg.d_model, device="cuda")}
+    h = (torch.randn(64, 1, cfg.d_model, generator=gen, device="cuda")
+         * 4).to(torch.bfloat16)
+    got = _logits(params, cfg, h)
+    assert torch.equal(_logits(params, cfg, h[:8]), got[:8])
+    cpu = _to_cpu(params)
+    want = _logits(cpu, cfg, h.cpu())
+    hn = rms_norm(h.cpu(), cpu["final_norm"]).double()
+    tol = cfg.d_model ** 0.5 * 2.0 ** -24 * (
+        hn.abs() @ cpu["embed"].double().abs().T) + SOFTCAP_ULPS * \
+        torch.from_numpy(np.spacing(want.abs().numpy())).double()
+    assert float(want.abs().max()) > 1.0          # the cap bends the logits
+    assert bool(((got.cpu().double() - want.double()).abs() <= tol).all())
+
+
 # ---------------------------------------------------------------------------
 # The codec matrix on the card
 # ---------------------------------------------------------------------------
@@ -837,6 +967,51 @@ def test_cuda_pack_w_nvfp4_equals_cpu():
         assert _same_bits(dec(got, *w.shape).cpu(), dec(want, *w.shape))
 
 
+def _card_cfg(**kw):
+    """test_cuda_engine_codecs_match_cpu's model: 2 layers, d 256, hd 64."""
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(name="codec-card", family="dense", n_layers=2,
+                       d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                       vocab_size=512, quant="serve", **kw)
+
+
+def _check_engine_card_matches_cpu(cfg, params, last_tol: float):
+    """The engine on the CPU and on the card (``params`` copied there), 6
+    requests through 4 slots with pages of 32 positions and chunks of 4,
+    the card's run fed the CPU run's tokens: the same tokens, and the
+    logits of the first launch within 2e-3 of the CPU's and of the last
+    within ``last_tol`` (|logits| < 4). Returns the card's engine."""
+    from repro_torch.serve.engine import ServeEngine
+    rng = np.random.default_rng(15)
+    prompts = [list(map(int, rng.integers(0, 512, n)))
+               for n in (5, 9, 3, 12, 7, 4)]
+    cpu_logits, cpu_tokens = [], []
+
+    def record(logits):
+        cpu_logits.append(logits)
+        cpu_tokens.append(np.argmax(logits, axis=-1))
+        return cpu_tokens[-1]
+
+    cpu = ServeEngine(params, cfg, n_slots=4, max_len=32, prefill_chunk=4,
+                      sample_fn=record, device="cpu")
+    want = cpu.generate(prompts, 6)
+    card_logits = []
+
+    def forced(logits):
+        card_logits.append(logits)
+        return cpu_tokens[len(card_logits) - 1]
+
+    card = ServeEngine(_to_device(params, "cuda"), cfg, n_slots=4, max_len=32,
+                       prefill_chunk=4, sample_fn=forced, device="cuda")
+    assert card.generate(prompts, 6) == want
+    assert len(card_logits) == len(cpu_logits) == card.stats.steps
+    for i, tol in ((0, 2e-3), (-1, last_tol)):
+        assert np.abs(cpu_logits[i]).max() < 4
+        np.testing.assert_allclose(card_logits[i], cpu_logits[i], rtol=0,
+                                   atol=tol, err_msg=str(i))
+    return card
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt,kv_quant", [("m2xfp_ideal6", "none"),
                                           ("m2xfp_ideal6", "m2xfp_ideal6"),
@@ -858,45 +1033,39 @@ def test_cuda_engine_codecs_match_cpu(fmt, kv_quant):
     80GB HBM3, 700 W). m2xfp_ideal6 launches kernel #1 7 times per layer
     per launch, nvfp4 no dequant-GEMM."""
     _need_cuda()
-    from repro_torch.models.config import ModelConfig
-    from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.prequant import init_packed_params
-    cfg = ModelConfig(name="codec-card", family="dense", n_layers=2,
-                      d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
-                      vocab_size=512, quant="serve", quant_format=fmt,
-                      kv_quant=kv_quant)
+    cfg = _card_cfg(quant_format=fmt, kv_quant=kv_quant)
     params = init_packed_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    rng = np.random.default_rng(15)
-    prompts = [list(map(int, rng.integers(0, 512, n)))
-               for n in (5, 9, 3, 12, 7, 4)]
-    cpu_logits, cpu_tokens = [], []
-
-    def record(logits):
-        cpu_logits.append(logits)
-        cpu_tokens.append(np.argmax(logits, axis=-1))
-        return cpu_tokens[-1]
-
-    cpu = ServeEngine(params, cfg, n_slots=4, max_len=32, prefill_chunk=4,
-                      sample_fn=record, device="cpu")
-    want = cpu.generate(prompts, 6)
-    card_logits = []
-
-    def forced(logits):
-        card_logits.append(logits)
-        return cpu_tokens[len(card_logits) - 1]
-
     for k in (M2XFP_KERNEL, MXFP4_KERNEL, QUANTIZE_KERNEL, QKERNEL):
         k.launches = 0
-    card = ServeEngine(_to_device(params, "cuda"), cfg, n_slots=4, max_len=32,
-                       prefill_chunk=4, sample_fn=forced, device="cuda")
-    assert card.generate(prompts, 6) == want
-    assert len(card_logits) == len(cpu_logits) == card.stats.steps
-    for i, tol in ((0, 2e-3), (-1, LAST_TOL_NVFP4 if fmt == "nvfp4"
-                                else 2e-3)):
-        assert np.abs(cpu_logits[i]).max() < 4
-        np.testing.assert_allclose(card_logits[i], cpu_logits[i], rtol=0,
-                                   atol=tol, err_msg=str(i))
+    card = _check_engine_card_matches_cpu(
+        cfg, params, LAST_TOL_NVFP4 if fmt == "nvfp4" else 2e-3)
     expected = 7 * cfg.n_layers * card.stats.steps if fmt != "nvfp4" else 0
     assert M2XFP_KERNEL.launches == expected
     assert MXFP4_KERNEL.launches == QUANTIZE_KERNEL.launches == \
         QKERNEL.launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [
+    dict(qkv_bias=True, tie_embeddings=True),
+    dict(qk_norm=True),
+    dict(local_global=True, sliding_window=8, attn_softcap=50.0,
+         final_softcap=30.0, tie_embeddings=True),
+], ids=["qkv_bias-tied", "qk_norm", "local_global-softcaps-tied"])
+def test_cuda_engine_variants_match_cpu(variant):
+    """test_cuda_engine_codecs_match_cpu's comparison on the m2xfp engine
+    for each attention variant, with seeded QKV biases and qk-norm weights
+    (``fill_attention_extras``), so that a bias or norm weight the card
+    dropped would show; the window of 8 is narrower than the longest
+    request (12 + 6 tokens), so its rings wrap. Kernel #1 runs 7 times per
+    layer per launch."""
+    _need_cuda()
+    from repro_torch.serve.prequant import init_packed_params
+    from repro_torch.testing import fill_attention_extras
+    cfg = _card_cfg(quant_format="m2xfp", **variant)
+    params = fill_attention_extras(init_packed_params(
+        torch.Generator().manual_seed(0), cfg, "cpu"), cfg)
+    M2XFP_KERNEL.launches = 0
+    card = _check_engine_card_matches_cpu(cfg, params, 2e-3)
+    assert M2XFP_KERNEL.launches == 7 * cfg.n_layers * card.stats.steps

@@ -238,15 +238,19 @@ def _clone_caches(caches):
         for layer in caches["layers"]]}
 
 
-def check_prefill_chunk_bitexact_vs_decode(cfg, chunk, lengths):
+def check_prefill_chunk_bitexact_vs_decode(cfg, chunk, lengths,
+                                           params=None):
     """After a shared two-token history, one prefill_chunk with ``lengths``
     valid tokens per row gives at every valid row and position the logits
     of decode_step fed the same tokens (rows advance only while valid), and
-    leaves the same caches, bf16 or packed, byte for byte."""
+    leaves the same caches, bf16 or packed, byte for byte. ``params``: the
+    packed tree (default ``init_packed_params`` from seed 0)."""
     from repro_torch.models.model import (
         decode_step, init_caches, prefill_chunk)
     from repro_torch.serve.prequant import init_packed_params
-    params = init_packed_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    if params is None:
+        params = init_packed_params(torch.Generator().manual_seed(0), cfg,
+                                    "cpu")
     b = len(lengths)
     rng = np.random.default_rng(chunk)
     warm = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 2)))
@@ -334,10 +338,16 @@ def test_submit_rejects_overlong_and_empty_requests(reference):
     eng.submit([1] * 10, max_new_tokens=6)          # exactly fits
 
 
-def test_unsupported_config_raises():
+@pytest.mark.parametrize("overrides,named", [
+    ({"family": "moe"}, "family='moe'"),
+    ({"n_experts": 8, "experts_per_token": 2}, "experts"),
+    ({"input_mode": "embeddings"}, "input_mode='embeddings'"),
+])
+def test_unsupported_config_raises(overrides, named):
+    """Every feature check_supported still rejects raises, naming it."""
     from repro_torch.models.model import init_params
-    cfg = _port_cfg(sliding_window=8)
-    with pytest.raises(NotImplementedError, match="sliding_window"):
+    cfg = _port_cfg(**overrides)
+    with pytest.raises(NotImplementedError, match=named):
         init_params(torch.Generator(), cfg, "cpu")
 
 
