@@ -97,8 +97,31 @@ printing JSON lines:
                  against its plain version (M = 8 and 64, rows equal
                  across M, the split plan printed); then gemma2's decode
                  step split as in phase 3
-  8. serve    -- phase 3 with the mxfp4 codec, at 8 layers (MXFP4_LAYERS)
-  9. bitmath  -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
+  8. families -- the model families of ROADMAP A6c and A6d at full width,
+                 m2xfp weights from SEED, bf16 KV. Embedding input at the
+                 model level (no engine serves it): musicgen-large at its
+                 first 16 of 48 layers and pixtral-12b at its first 8 of
+                 40 (FAMILY_EMBED: the phase's time), 8 slots x
+                 32 embeddings through prefill chunks of 8 and through
+                 decode_step, slots valid for 32..1 positions: logits at
+                 every valid position finite and equal bit for bit, caches
+                 equal, the m2xfp kernel launched 7 times per layer per
+                 launch. Mixture-of-experts through the engine with the
+                 codecs phase's traffic: olmoe-1b-7b at all 16 layers (64
+                 experts, packed (K, E, N)) and mixtral-8x22b at its first
+                 2 of 56 (8 experts, dense bf16, as the reference leaves
+                 them); before each serve, layer 0's moe_apply on the card
+                 at 8 and 64 tokens and its device time split into the
+                 experts' decode and products, then, beside the serve, the
+                 same calls on the CPU (routing bit for bit, the output
+                 within MOE_TOLERANCE); each serve
+                 with phase 3's assertions but 4 kernel launches per layer
+                 (q, k, v, o) and the agreement with chunks of 1 printed,
+                 not asserted (a chunk routes as one group, as in the
+                 reference); then olmoe's decode step split as in phase 3
+                 over one profiled step, without the guard's on/off runs
+  9. serve    -- phase 3 with the mxfp4 codec, at 8 layers (MXFP4_LAYERS)
+  10. bitmath -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
                  the quantize engine on a 4097-point sweep of [-8, 8] (every
                  FP4 and FP6 code, midpoint and saturation) and the W4A4 GEMM
                  against an identity weight on random X streams (every
@@ -107,7 +130,7 @@ printing JSON lines:
                  (identity x on random streams: every code, meta field and
                  scale byte 0-250, subnormal weights included) equal to the
                  plain decoders
-  10. w4a4    -- the W4A4 datapath (quantize engine, then the fully packed
+  11. w4a4    -- the W4A4 datapath (quantize engine, then the fully packed
                  GEMM) through ``repro_torch.kernels`` for the seven
                  projections of one full-width paper-llama2-7b layer at M in
                  {1, 8, 64, 129, 2048}: streams byte-identical to the plain
@@ -121,7 +144,7 @@ printing JSON lines:
                  share_of_bound at every point); then the launch floor (the
                  event time of torch.zeros(1)) and the quantize engine's
                  kernel-only time at M = 8 from torch.profiler
-  11. flash   -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
+  12. flash   -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
                  layer's prefill): causal at S = 512 and 2048, S = 2048 with
                  a 512 window, with softcap 50 on q scaled by 8 (so scores
                  reach the cap), and with the last 64 keys invalid and a
@@ -140,6 +163,7 @@ limit, printed beside them.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import gc
 import json
 import re
@@ -196,6 +220,31 @@ CODEC_WEIGHT_COLS = 512     # the CPU side of the Sg-EM search is slow at N
 VARIANTS = [("qwen2-0.5b", 24, MAX_LEN, (16, 64)),
             ("qwen3-8b", 8, MAX_LEN, (16, 64)),
             ("gemma2-9b", 8, 128, (96, 160))]
+# Families phase (ROADMAP A6c, A6d), full widths, m2xfp weights from SEED,
+# bf16 KV. Embedding input runs at the model level (no engine serves it):
+# (arch, layers), 8 slots x FAMILY_POSITIONS embeddings of std 1 from SEED
+# through prefill chunks of CHUNK and through decode_step; each slot's
+# valid positions are FAMILY_LENGTHS, so rows end inside a chunk or sit
+# idle through later chunks. MoE through the engine with the codecs
+# phase's traffic: (arch, layers); mixtral's experts stay dense bf16 (8
+# experts: the reference packs experts only when E % 32 == 0), 4.83 GB a
+# layer, so it runs its first 2 layers. The phase has 150 s: with
+# musicgen-large at all 48 layers it took 235 s, and at 24 layers 185 s,
+# before olmoe's breakdown was cut to one profiled step and the MoE
+# checks' CPU side moved beside the serves (olmoe's device-bound serves,
+# its breakdown and the CPU side of its check took 133 s of those 185),
+# and then 134 s, within 16 s of the limit (musicgen 17.5 s of it; NVIDIA
+# H100 80GB HBM3, 700.00 W), so musicgen runs its first 16 layers.
+FAMILY_EMBED = [("musicgen-large", 16), ("pixtral-12b", 8)]
+FAMILY_POSITIONS = 32
+FAMILY_LENGTHS = (32, 30, 25, 20, 13, 8, 5, 1)
+FAMILY_MOE = [("olmoe-1b-7b", 16), ("mixtral-8x22b", 2)]
+# moe_apply on the card against the CPU: the routing bit for bit (router
+# and softmax in float64 on both), the output within 2 bf16 ulps of the
+# larger magnitude plus 2^-7 of the largest |output| (the expert products
+# accumulate in f32 on the card, in float64 on the CPU, and each is
+# rounded to bf16)
+MOE_TOLERANCE = "2^-7 * (max(|card|, |cpu|) + max|cpu|)"
 # Kernel vs plain: |diff| <= sqrt(K) * 2^-24 * (|x| @ |Wdec|). Every product
 # is exact in f32 and the plain version rounds once, so the kernel's error
 # is its K f32 roundings, which add as a random walk: sqrt(K) * 2^-24 of the
@@ -412,12 +461,15 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
     ``max_len`` positions, with a bf16 KV cache or one packed in
     ``kv_quant``. Every launch counter is zeroed just before the run and
     read just after;
-    ``kern`` must have run 7 times per layer per engine launch and every
-    other kernel not at all (``kern`` None: no kernel at all), and the
-    guard must have stayed healthy with nothing quarantined, scrubbed or
-    retried. The same traffic served with prefill chunks of 1 must give the
-    same tokens where the codec's activation quantization is
-    batch-invariant (else the agreement is printed only). ``bf16_kv``: the
+    ``kern`` must have run 7 times per layer per engine launch (4 for a
+    mixture-of-experts model: q, k, v and o; the experts take no kernel)
+    and every other kernel not at all (``kern`` None: no kernel at all),
+    and the guard must have stayed healthy with nothing quarantined,
+    scrubbed or retried. The same traffic served with prefill chunks of 1
+    must give the same tokens where the codec's activation quantization is
+    batch-invariant and the model has no experts (else the agreement is
+    printed only: a chunk's tokens route as one group, whose capacity
+    drops other tokens than a decode step's, as in the reference). ``bf16_kv``: the
     bf16-KV phase's result with the same weights, which a packed-KV phase
     prints beside its own. ``params``: weights an earlier phase packed from
     SEED (else packed here). Returns (engine, launches of ``kern``, the
@@ -465,18 +517,21 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
     others = {k.name: k.launches for k in kernels if k is not kern}
     if any(others.values()):
         raise AssertionError(f"{codec} path launched {others}")
-    expected = 7 * layers * eng.stats.steps if kern is not None else 0
+    per_layer = 4 if cfg.is_moe else 7
+    expected = per_layer * layers * eng.stats.steps if kern is not None \
+        else 0
     if launches != expected:
         raise AssertionError(
-            f"{codec}: {launches} kernel launches, expected 7 x {layers} "
-            f"layers x {eng.stats.steps} engine launches")
+            f"{codec}: {launches} kernel launches, expected {per_layer} x "
+            f"{layers} layers x {eng.stats.steps} engine launches")
     if len(eng.scheduler.finished) != len(prompts) or any(
             len(o) != n_tokens for o in outs):
         raise AssertionError(f"{codec}: not every request completed")
     peak = torch.cuda.max_memory_allocated()
     _, outs1 = run(1)
     same = sum(a == b for o, o1 in zip(outs, outs1) for a, b in zip(o, o1))
-    batch_invariant = get_codec(codec).act_batch_invariant
+    batch_invariant = get_codec(codec).act_batch_invariant \
+        and not cfg.is_moe
     if batch_invariant and same != len(prompts) * n_tokens:
         raise AssertionError(
             f"{codec}: prefill chunks of {CHUNK} and of 1 gave different "
@@ -538,7 +593,7 @@ def gemm_kernel_names(kern) -> list:
     return names
 
 
-def decode_breakdown(eng, device, kern, steps: int = 3):
+def decode_breakdown(eng, device, kern, steps: int = 3, guard: bool = True):
     """Wall time of an all-slots decode step (host clock, synchronized, no
     profiler), then its device time by kernel from torch.profiler over as
     many more steps. The idle share is ``1 - device / wall`` unclipped; a
@@ -546,7 +601,8 @@ def decode_breakdown(eng, device, kern, steps: int = 3):
     and raises. The packed GEMM's time is that of every kernel whose name
     carries "dequant_gemm"; gemm_kernel_names checks first that ``kern``'s
     library holds no other. ``kern`` None (a codec served through its
-    decode): every kernel whose name carries "gemm"."""
+    decode): every kernel whose name carries "gemm". ``guard``: also the
+    engine's decode launch with its guard on and off (guard_cost)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.model import decode_step
     b = eng.n_slots
@@ -593,7 +649,7 @@ def decode_breakdown(eng, device, kern, steps: int = 3):
          other_device_ms=total - gemm, device_idle_share=idle,
          gemm_kernel_names=names,
          top_kernels_ms={k[:80]: v for k, v in top},
-         **guard_cost(eng, device))
+         **(guard_cost(eng, device) if guard else {}))
 
 
 def _device_ms(prof, steps: int) -> float:
@@ -1171,6 +1227,236 @@ def variants_phase(timer, device, kern, kernels) -> int:
     return launches
 
 
+def embed_input_check(arch: str, layers: int, device, kern,
+                      kernels) -> int:
+    """Embedding input at full width, the first ``layers`` layers of
+    ``arch``: 8 slots of FAMILY_POSITIONS embeddings through prefill_chunk
+    in chunks of CHUNK (row b valid for FAMILY_LENGTHS[b] positions) and
+    through decode_step one position at a time (a slot past its length
+    keeps its cache rows). The logits at every valid position must be
+    finite and equal bit for bit, the caches equal, and ``kern`` launched
+    7 times per layer per launch, no other kernel. Returns its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step, init_caches, \
+        prefill_chunk
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = get_config(arch, quant="serve", n_layers=layers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_packed_params(gen, cfg, device)
+    embeds = torch.randn(N_SLOTS, FAMILY_POSITIONS, cfg.d_model,
+                         generator=gen, device=device).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    lengths = torch.tensor(FAMILY_LENGTHS, device=device)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    pre_caches = init_caches(cfg, N_SLOTS, FAMILY_POSITIONS, device)
+    pre = torch.cat([prefill_chunk(
+        params, cfg, {"embeds": embeds[:, c:c + CHUNK]}, pre_caches,
+        torch.full((N_SLOTS,), c, device=device),
+        (lengths - c).clamp(0, CHUNK))
+        for c in range(0, FAMILY_POSITIONS, CHUNK)], dim=1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec_caches = init_caches(cfg, N_SLOTS, FAMILY_POSITIONS, device)
+    dec = []
+    for t in range(FAMILY_POSITIONS):
+        idle = torch.nonzero(lengths <= t)[:, 0]
+        kept = [{k: v[idle].clone() for k, v in layer.items()}
+                for layer in dec_caches["layers"]]
+        dec.append(decode_step(params, cfg, {"embeds": embeds[:, t:t + 1]},
+                               dec_caches,
+                               torch.full((N_SLOTS,), t, device=device))[:, 0])
+        for layer, rows in zip(dec_caches["layers"], kept):
+            for k, v in rows.items():
+                layer[k][idle] = v
+    dec = torch.stack(dec, dim=1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    n_launches = FAMILY_POSITIONS // CHUNK + FAMILY_POSITIONS
+    launches = kern.launches
+    others = {k.name: k.launches for k in kernels if k is not kern}
+    valid = torch.arange(FAMILY_POSITIONS, device=device)[None] \
+        < lengths[:, None]
+    equal = torch.equal(pre[valid], dec[valid])
+    finite = bool(torch.isfinite(pre[valid]).all())
+    caches_equal = all(torch.equal(a[k], b[k]) for a, b in zip(
+        pre_caches["layers"], dec_caches["layers"]) for k in a)
+    emit("families", check="embedding_input", model=cfg.name,
+         family=cfg.family, layers=layers, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, slots=N_SLOTS,
+         positions=FAMILY_POSITIONS, lengths=list(FAMILY_LENGTHS),
+         prefill_chunk=CHUNK, valid_positions=int(valid.sum()),
+         prefill_equals_decode=equal, finite=finite,
+         caches_equal=caches_equal, kernel=kern.name, launches=launches,
+         launches_expected=7 * layers * n_launches, other_launches=others,
+         init_and_pack_s=pack_s, prefill_s=prefill_s, decode_s=decode_s,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if not (equal and finite and caches_equal) or any(others.values()) \
+            or launches != 7 * layers * n_launches:
+        raise AssertionError(f"{arch}: embedding input failed its checks")
+    return launches
+
+
+def _to_cpu(node):
+    from repro_torch.core.codecs import PackedTensor
+    if isinstance(node, PackedTensor):
+        return PackedTensor({k: t.cpu() for k, t in node.streams.items()},
+                            node.shape, node.codec)
+    return {k: _to_cpu(v) for k, v in node.items()} \
+        if isinstance(node, dict) else node.cpu()
+
+
+def moe_apply_check(timer, cfg, ffn: dict, device):
+    """Layer 0's moe_apply on the card at 8 and 64 tokens (a decode step's
+    and a chunk of 8's), then its device time at 8 tokens, split into the
+    packed experts' decode and the three expert products (CUDA events, L2
+    flushed). Returns the CPU side as a function, to be run while the card
+    serves (the CPU's moe_apply decodes every expert, seconds a call at
+    olmoe's width): it holds the routing (probabilities, top-k experts and
+    weights, queue positions, kept assignments) to the card's bit for bit
+    and the output within MOE_TOLERANCE, raises on a difference, and
+    returns the lines to print."""
+    from repro_torch.core.codecs import PackedTensor
+    from repro_torch.models.moe import _capacity, moe_apply, route
+    from repro_torch.models.numerics import einsum_f32acc
+    from repro_torch.models.quant import decode_serving_weight
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    k, e, d = cfg.experts_per_token, cfg.n_experts, cfg.d_model
+    cases = []
+    for b, s in ((N_SLOTS, 1), (N_SLOTS, CHUNK)):
+        x = torch.randn(b, s, d, generator=gen, device=device).to(
+            torch.bfloat16)
+        g = min(cfg.moe_group_size, b * s)
+        cap = _capacity(g, k, e, cfg.moe_capacity_factor)
+        got = [t.cpu() for t in route(ffn["router"], x.reshape(-1, g, d), k,
+                                      cap)]
+        cases.append((x.cpu(), g, cap, got,
+                      moe_apply(ffn, x, cfg, cfg.quant).float().cpu()))
+    cpu_ffn = _to_cpu(ffn)
+
+    def on_cpu() -> list:
+        lines = []
+        for x, g, cap, got, y in cases:
+            t0 = time.perf_counter()
+            want = route(cpu_ffn["router"], x.reshape(-1, g, d), k, cap)
+            routing_equal = all(torch.equal(a, w) for a, w in zip(got, want))
+            y_cpu = moe_apply(cpu_ffn, x, cfg, cfg.quant).float()
+            bound_ = 2.0 ** -7 * (torch.maximum(y.abs(), y_cpu.abs())
+                                  + y_cpu.abs().max())
+            ratio = float(((y - y_cpu).abs() / bound_).max())
+            probs = torch.sort(want[0], dim=-1, descending=True).values
+            n = x.shape[0] * x.shape[1] * k
+            lines.append(dict(
+                check="moe_apply", model=cfg.name, tokens=n // k, group=g,
+                capacity=cap, experts=e, top_k=k,
+                routing_equal=routing_equal, assignments=n,
+                dropped=int(n - want[4].sum()),
+                smallest_top_k_gap=float((probs[..., k - 1]
+                                          - probs[..., k]).min()),
+                tolerance=MOE_TOLERANCE, max_ratio_to_tolerance=ratio,
+                max_abs_diff=float((y - y_cpu).abs().max()),
+                bit_equal_share=float((y == y_cpu).float().mean()),
+                finite=bool(torch.isfinite(y).all()),
+                cpu_seconds=time.perf_counter() - t0))
+            if not routing_equal or not ratio <= 1.0:
+                raise AssertionError(f"{cfg.name}: moe_apply on the card "
+                                     f"differs from the CPU: {lines[-1]}")
+        return lines
+
+    experts = [ffn[n] for n in ("gate", "up", "down")]
+    packed = [isinstance(w, PackedTensor) for w in experts]
+    dense = [decode_serving_weight(w) if p else w
+             for w, p in zip(experts, packed)]
+    cap = _capacity(N_SLOTS, k, e, cfg.moe_capacity_factor)
+    xs = [torch.randn(1, e, cap, w.shape[0] if p else w.shape[1],
+                      generator=gen, device=device).to(torch.bfloat16)
+          for w, p in zip(experts, packed)]
+    eqs = ["geck,kef->gecf" if p else "geck,ekf->gecf" for p in packed]
+    x8 = torch.randn(N_SLOTS, 1, d, generator=gen, device=device).to(
+        torch.bfloat16)
+    emit("families", check="moe_layer_cost", model=cfg.name, tokens=N_SLOTS,
+         capacity=cap, experts_packed=packed,
+         expert_weight_bytes=sum(
+             sum(t.nbytes for t in w.streams.values()) if p else w.nbytes
+             for w, p in zip(experts, packed)),
+         moe_apply_ms=timer(lambda: moe_apply(ffn, x8, cfg, cfg.quant)),
+         expert_decode_ms=timer(lambda: [decode_serving_weight(w)
+                                         for w, p in zip(experts, packed)
+                                         if p]) if any(packed) else 0.0,
+         expert_products_ms=timer(lambda: [
+             einsum_f32acc(eq, xe, w) for eq, xe, w in zip(eqs, xs, dense)]))
+    return on_cpu
+
+
+def families_phase(timer, device, kern, kernels) -> int:
+    """Embedding input (FAMILY_EMBED, embed_input_check), then each of
+    FAMILY_MOE: m2xfp weights packed on the card from SEED, moe_apply_check
+    on layer 0 (its CPU side beside the serve), served with serve_phase's
+    assertions (4 launches of ``kern`` per layer per engine launch; the
+    agreement with chunks of 1 printed, not asserted); then olmoe's decode
+    step split as in phase 3. Returns the launches of ``kern``."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.prequant import init_packed_params
+    launches = 0
+    for arch, layers in FAMILY_EMBED:
+        launches += embed_input_check(arch, layers, device, kern, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, layers in FAMILY_MOE:
+        cfg = get_config(arch, quant="serve", n_layers=layers)
+        t0 = time.perf_counter()
+        params = init_packed_params(
+            torch.Generator(device=device).manual_seed(SEED), cfg, device)
+        torch.cuda.synchronize()
+        emit("families", check="moe_weights", model=cfg.name, layers=layers,
+             experts=cfg.n_experts, top_k=cfg.experts_per_token,
+             experts_packed={n: type(params["layers"][0]["ffn"][n]).__name__
+                             for n in ("gate", "up", "down")},
+             packed_weight_bytes=_packed_bytes(params),
+             dense_expert_bytes=sum(
+                 t.nbytes for lp in params["layers"]
+                 for t in lp["ffn"].values() if isinstance(t, torch.Tensor)
+                 and t.dtype == torch.bfloat16),
+             init_and_pack_s=time.perf_counter() - t0)
+        seconds = {"init_and_pack": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        on_cpu = moe_apply_check(timer, cfg, params["layers"][0]["ffn"],
+                                 device)
+        seconds["moe_apply_check_card"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the CPU side of the check runs beside the serve, which waits on
+        # the card (olmoe's step is device-bound), so the serve line's
+        # host-clock times may read high while it runs
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            cpu_side = pool.submit(on_cpu)
+            eng, n, _ = serve_phase(
+                "m2xfp", device, kern, kernels, layers=layers,
+                params=params, traffic=CODEC_TRAFFIC, arch=arch)
+            seconds["serve_chunks_8_and_1"] = time.perf_counter() - t0
+            for line in cpu_side.result():
+                emit("families", **line)
+        seconds["serve_and_cpu_check"] = time.perf_counter() - t0
+        del params
+        launches += n
+        if cfg.n_experts % 32 == 0:
+            # one profiled step and no guard on/off runs: the profiler's
+            # record of a step of olmoe (its experts' decode is thousands
+            # of small ops) takes seconds, and with three steps and the
+            # guard's runs the breakdown alone took 51 s of the phase
+            t0 = time.perf_counter()
+            decode_breakdown(eng, device, kern, steps=1, guard=False)
+            seconds["decode_breakdown"] = time.perf_counter() - t0
+        emit("families", check="moe_seconds", model=cfg.name, **seconds)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def bitmath_phase(gen, device):
     """The bit helpers of csrc/mx_bits.cuh on every code, through the two
     W4A4 kernels on constructed inputs, and the serve GEMMs' weight decode
@@ -1624,10 +1910,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("codecs")
     variant_launches = variants_phase(timer, device, M2XFP, kernels)
+    lap("variants")
+    family_launches = families_phase(timer, device, M2XFP, kernels)
     summary["m2xfp_matmul"]["launches"] = (
         launches + kv_launches + guard_launches + ideal_launches
-        + variant_launches)
-    lap("variants")
+        + variant_launches + family_launches)
+    lap("families")
     eng, summary["mxfp4_matmul"]["launches"], _ = serve_phase(
         "mxfp4", device, MXFP4, kernels, layers=MXFP4_LAYERS)
     decode_breakdown(eng, device, MXFP4)

@@ -4,14 +4,19 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-ARCHS = ("qwen2.5-14b", "qwen2-0.5b", "gemma2-9b", "qwen3-8b",
+ARCHS = ("olmoe-1b-7b", "mixtral-8x22b", "qwen2.5-14b", "qwen2-0.5b",
+         "gemma2-9b", "qwen3-8b", "musicgen-large", "pixtral-12b",
          "paper-llama2-7b")
 
 _MODULES = {
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "mixtral-8x22b": "mixtral_8x22b",
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen2-0.5b": "qwen2_0_5b",
     "gemma2-9b": "gemma2_9b",
     "qwen3-8b": "qwen3_8b",
+    "musicgen-large": "musicgen_large",
+    "pixtral-12b": "pixtral_12b",
     "paper-llama2-7b": "paper_llama2_7b",
 }
 

@@ -90,16 +90,21 @@ def _cache_rows(k: torch.Tensor, v: torch.Tensor, cfg) -> dict:
     return {"k": kv_encode(k, cfg.kv_quant), "v": kv_encode(v, cfg.kv_quant)}
 
 
-def _attend_one(q, rows, out_dtype, cfg, cache, index, valid=None):
+def _attend_one(q, rows, out_dtype, cfg, cache, index, valid=None,
+                window=0):
     """Write one token's K/V per slot and attend ``q`` against the page.
 
     q (B,1,nh,hd); ``rows`` = ``_cache_rows`` of one token per slot
     (leading (B, 1)); ``index`` (B,) absolute positions; ``valid`` (B,)
     bool or None -- rows where it is False leave their cache untouched and
     return garbage context for the caller to discard. The page's width is
-    the layer's window (module docstring). The scores are scaled by
-    ``hd**-0.5``, then soft-capped by ``cfg.attn_softcap``. Updates
-    ``cache`` in place; returns ctx (B,1,nh*hd)."""
+    the layer's window (module docstring), so the window mask (a key at
+    most ``window - 1`` positions back; 0 = global) removes nothing from a
+    valid row; it shapes only the garbage of a row past its chunk length,
+    as in the reference (a mixture-of-experts layer routes those rows with
+    the valid ones). The scores are scaled by ``hd**-0.5``, then
+    soft-capped by ``cfg.attn_softcap``. Updates ``cache`` in place;
+    returns ctx (B,1,nh*hd)."""
     b = q.shape[0]
     fmt = cfg.kv_quant
     w = cache["pos"].shape[1]
@@ -122,6 +127,8 @@ def _attend_one(q, rows, out_dtype, cfg, cache, index, valid=None):
     sc = softcap(sc, cfg.attn_softcap)
     idx = index[:, None]
     valid_kv = (pos >= 0) & (pos <= idx)                         # (B, W)
+    if window:
+        valid_kv = valid_kv & (idx - pos < window)
     sc = torch.where(valid_kv[:, None, None, :], sc, NEG_INF)
     probs = torch.softmax(sc, dim=-1)
     out = torch.einsum("bkgw,bwkd->bkgd",
@@ -131,18 +138,20 @@ def _attend_one(q, rows, out_dtype, cfg, cache, index, valid=None):
 
 
 def attention_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
-                     index: torch.Tensor, quant: str = "none"):
+                     index: torch.Tensor, quant: str = "none",
+                     window: int = 0):
     """One-token decode for every slot: x (B,1,d), ``index`` (B,) absolute
-    positions. Updates ``cache`` in place; returns out (B,1,d)."""
+    positions, ``window`` the layer's (0 = global). Updates ``cache`` in
+    place; returns out (B,1,d)."""
     q, k_new, v_new = _project_qkv(p, x, cfg, index[:, None], quant)
     ctx = _attend_one(q, _cache_rows(k_new, v_new, cfg), x.dtype, cfg, cache,
-                      index)
+                      index, window=window)
     return quantized_matmul(ctx, p["wo"], quant)
 
 
 def attention_prefill(p: dict, x: torch.Tensor, cfg, cache: dict,
                       index: torch.Tensor, lengths: torch.Tensor,
-                      quant: str = "none"):
+                      quant: str = "none", window: int = 0):
     """Chunked prefill: up to T tokens per slot in one call. x (B,T,d); row
     b's valid tokens are ``x[b, :lengths[b]]`` at positions ``index[b]``
     onward (``lengths`` may be 0 for idle rows). The QKV and output
@@ -159,7 +168,7 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg, cache: dict,
             return {key: at(val, i) for key, val in node.items()}
         return node[:, i:i + 1]
     ctxs = [_attend_one(q[:, i:i + 1], at(rows, i), x.dtype, cfg, cache,
-                        index + i, valid=i < lengths)
+                        index + i, valid=i < lengths, window=window)
             for i in range(t)]
     return quantized_matmul(torch.cat(ctxs, dim=1), p["wo"], quant)
 

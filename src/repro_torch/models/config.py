@@ -1,8 +1,9 @@
 """Unified model configuration covering all assigned architecture families.
 
 A copy of ``repro.models.config``, so that a configuration carries over
-field for field. The port's model runs the dense family only and rejects
-the fields it does not implement yet (``repro_torch.models.model``)."""
+field for field. The port's model runs the attention families (dense, moe,
+audio, vlm) and rejects the recurrent ones it does not implement yet
+(``repro_torch.models.model.check_supported``)."""
 from __future__ import annotations
 
 import dataclasses

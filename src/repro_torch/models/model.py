@@ -1,12 +1,17 @@
-"""Dense decoder LM of the serve path (port of the dense family of
-repro.models.model, with its attention variants: QKV bias, qk-norm, tied
-embeddings, sliding windows, local/global layers and both soft-caps).
+"""Decoder LM of the serve path (port of the attention families of
+repro.models.model -- dense, moe, audio and vlm -- with the attention
+variants: QKV bias, qk-norm, tied embeddings, sliding windows, local/global
+layers and both soft-caps).
 
 Parameters are a dict: ``embed`` (V, d) bf16, ``final_norm`` (d,) f32,
 ``lm_head`` (d, V) bf16 (absent under ``tie_embeddings``: the head is
 ``embed.T``) and ``layers``, a list of per-layer dicts
 ``{attn_norm, attn: {wq, wk, wv, wo[, bq, bk, bv][, q_norm, k_norm]},
-ffn_norm, ffn: {gate, up, down}}``.
+ffn_norm, ffn}``: ``ffn`` is ``{gate, up, down}`` (an MLP), or under
+``cfg.is_moe`` ``{router, gate, up, down}`` (``models/moe.py``). A model
+with ``input_mode="embeddings"`` (the audio and vlm families, whose
+frontends are stubs in the reference) takes its input as embeddings; it
+still draws ``embed``, as the reference's ``init_params`` does.
 The reference stacks the layers on a leading axis and scans over them; the
 port loops over the list, so each layer can be packed and freed on its own
 (``repro_torch.convert`` maps one layout to the other).
@@ -25,6 +30,7 @@ from repro_torch.core.codecs import get_codec, packed_codecs
 from . import attention as attn
 from .kvquant import kv_codec
 from .layers import init_embedding, init_mlp, mlp_apply, rms_norm, softcap
+from .moe import init_moe, moe_apply
 from .numerics import dot_f32acc
 from .quant import pack_serving_weight
 
@@ -38,20 +44,16 @@ _PACK_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for configuration features the port
-    has not taken yet (other families, experts, embedding input), and
-    ``ValueError`` for a served ``quant_format`` with no packed path
-    (naming ``packed_codecs()``) or a ``kv_quant`` codec with no packed KV
-    path (naming ``kv_codecs()``), in the reference's words."""
-    missing = [name for name, on in (
-        (f"family={cfg.family!r}", cfg.family != "dense"),
-        ("experts", cfg.is_moe),
-        (f"input_mode={cfg.input_mode!r}", cfg.input_mode != "tokens"),
-    ) if on]
-    if missing:
+    """Raise ``NotImplementedError`` for the families the port has not
+    taken yet (the recurrent ``ssm`` and ``hybrid``), and ``ValueError`` for
+    a served ``quant_format`` with no packed path (naming
+    ``packed_codecs()``) or a ``kv_quant`` codec with no packed KV path
+    (naming ``kv_codecs()``), in the reference's words."""
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the torch port serves dense attention models "
-            f"only; not ported yet: {', '.join(missing)}")
+            f"{cfg.name}: the torch port serves the attention families "
+            f"(dense, moe, audio, vlm) only; not ported yet: "
+            f"family={cfg.family!r}")
     if cfg.quant == "serve" and not get_codec(cfg.quant_format).packed:
         raise ValueError(
             f"cfg.quant_format={cfg.quant_format!r} has no packed serving "
@@ -85,7 +87,8 @@ def init_layer(gen: torch.Generator, cfg, device="cuda") -> dict:
         "attn_norm": ones,
         "attn": attn.init_attention(gen, cfg, device),
         "ffn_norm": ones.clone(),
-        "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, device),
+        "ffn": init_moe(gen, cfg, device) if cfg.is_moe
+        else init_mlp(gen, cfg.d_model, cfg.d_ff, device),
     }
 
 
@@ -123,8 +126,18 @@ def init_caches(cfg, batch: int, max_len: int, device="cuda") -> dict:
 # Decode / chunked prefill
 # ---------------------------------------------------------------------------
 
+def _embed_in(params, cfg, batch) -> torch.Tensor:
+    """batch {"embeds": (B, T, d) bf16} under ``input_mode="embeddings"``,
+    else {"tokens": (B, T)} looked up in ``embed``."""
+    if cfg.input_mode == "embeddings":
+        return batch["embeds"]
+    return params["embed"][batch["tokens"]]
+
+
 def _ffn(lp, h, cfg):
     x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
+    if cfg.is_moe:
+        return h + moe_apply(lp["ffn"], x, cfg, cfg.quant)
     return h + mlp_apply(lp["ffn"], x, cfg.quant)
 
 
@@ -136,31 +149,38 @@ def _logits(params, cfg, h):
 
 def decode_step(params: dict, cfg, batch: dict, caches: dict,
                 index: torch.Tensor) -> torch.Tensor:
-    """One token for every slot. batch: {"tokens": (B, 1)}; ``index`` (B,)
+    """One token for every slot. batch: {"tokens": (B, 1)}, or
+    {"embeds": (B, 1, d)} under ``input_mode="embeddings"``; ``index`` (B,)
     absolute position of each slot's token. Updates ``caches`` in place and
     returns f32 logits (B, 1, V)."""
-    h = params["embed"][batch["tokens"]]
-    for lp, cache in zip(params["layers"], caches["layers"]):
+    h = _embed_in(params, cfg, batch)
+    for lp, cache, window in zip(params["layers"], caches["layers"],
+                                 layer_windows(cfg)):
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         h = h + attn.attention_decode(lp["attn"], x, cfg, cache, index,
-                                      cfg.quant)
+                                      cfg.quant, window)
         h = _ffn(lp, h, cfg)
     return _logits(params, cfg, h)
 
 
 def prefill_chunk(params: dict, cfg, batch: dict, caches: dict,
                   index: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Chunked prefill: batch {"tokens": (B, T)}; ``index`` (B,) position of
-    column 0 per slot; ``lengths`` (B,) valid tokens per row, 0..T (0 =
-    idle, caches untouched). Every projection runs once over the chunk.
-    Returns f32 logits (B, T, V); ``logits[b, t]`` for t < lengths[b] is
-    bit-identical to what ``decode_step`` emits for the same tokens fed one
-    at a time, later positions are garbage to discard."""
-    h = params["embed"][batch["tokens"]]
-    for lp, cache in zip(params["layers"], caches["layers"]):
+    """Chunked prefill: batch {"tokens": (B, T)} (or {"embeds": (B, T, d)});
+    ``index`` (B,) position of column 0 per slot; ``lengths`` (B,) valid
+    tokens per row, 0..T (0 = idle, caches untouched). Every projection
+    runs once over the chunk. Returns f32 logits (B, T, V); ``logits[b, t]``
+    for t < lengths[b] is bit-identical to what ``decode_step`` emits for
+    the same tokens fed one at a time, later positions are garbage to
+    discard -- except under ``cfg.is_moe``, as in the reference: the
+    experts route the chunk's B*T tokens (its padding included) as one
+    group, whose capacity differs from that of the B tokens of a decode
+    step, so a chunk of T > 1 may drop other tokens than decode does."""
+    h = _embed_in(params, cfg, batch)
+    for lp, cache, window in zip(params["layers"], caches["layers"],
+                                 layer_windows(cfg)):
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         h = h + attn.attention_prefill(lp["attn"], x, cfg, cache, index,
-                                       lengths, cfg.quant)
+                                       lengths, cfg.quant, window)
         h = _ffn(lp, h, cfg)
     return _logits(params, cfg, h)
 
@@ -171,14 +191,22 @@ def prefill_chunk(params: dict, cfg, batch: dict, caches: dict,
 
 def pack_layer_for_serving(layer: dict, fmt: str) -> dict:
     """One dense layer -> the same layer with every GEMM weight packed in
-    codec ``fmt`` (a weight whose K is not a multiple of 32 stays dense);
-    norms stay f32."""
+    codec ``fmt``, by the reference's rule: an expert weight (E, K, N) is
+    laid out contraction first, (K, E, N), and then, like a (K, N) weight,
+    packed only if its second-to-last axis is a multiple of 32 -- for an
+    expert weight that axis is E, so experts of a model with E % 32 != 0
+    stay dense (E, K, N) bf16. The router, norms and biases stay as they
+    are."""
     def convert(name, leaf):
         if isinstance(leaf, dict):
             return {k: convert(k, v) for k, v in leaf.items()}
-        if name in _PACK_KEYS and leaf.shape[0] % 32 == 0:
-            return pack_serving_weight(leaf.to(torch.float32), fmt)
-        return leaf
+        if name not in _PACK_KEYS or leaf.dim() < 2:
+            return leaf
+        # experts (E, K, N) -> contraction first (K, E, N), a view
+        w = leaf.permute(1, 0, 2) if leaf.dim() == 3 else leaf
+        if w.shape[-2] % 32:
+            return leaf
+        return pack_serving_weight(w.to(torch.float32), fmt)
     return convert("", layer)
 
 

@@ -10,6 +10,10 @@ Products accumulate in f32 and keep the operands' exact values:
   * on the CPU, float64 accumulation rounded to f32 (``kernels.ref``),
     which keeps a row's result independent of how many rows share the
     product, so chunked prefill stays bit-identical to sequential decode.
+
+``einsum_f32acc`` carries the same rule to the two-operand contractions of
+the mixture-of-experts FFN (dispatch, the per-expert products, combine):
+on the card as one batched bf16 product with f32 accumulation and output.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch
 
 from repro_torch.kernels.ref import dot_f64acc
 
-__all__ = ["dot_f32acc"]
+__all__ = ["dot_f32acc", "einsum_f32acc"]
 
 
 @contextlib.contextmanager
@@ -47,3 +51,43 @@ def dot_f32acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         out = torch.mm(x2.to(torch.bfloat16), w.to(torch.bfloat16),
                        out_dtype=torch.float32)
     return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _bmm_f32acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, M, K) @ (B, K, N) -> f32: float64 accumulation on the CPU, a bf16
+    tensor-core product with f32 accumulation and output on the card."""
+    if a.device.type == "cpu":
+        return torch.bmm(a.to(torch.float64), b.to(torch.float64)).to(
+            torch.float32)
+    return torch.bmm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                     out_dtype=torch.float32)
+
+
+def einsum_f32acc(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of bf16-exact operands, accumulated in f32
+    or wider (see the module docstring), f32 out. ``eq`` names each axis
+    once per operand (no repeats within one, no ellipsis); an axis in both
+    operands and the output is a batch axis, in both but not the output is
+    summed."""
+    lhs, out = eq.replace(" ", "").split("->")
+    ia, ib = lhs.split(",")
+    size = dict(zip(ia, a.shape)) | dict(zip(ib, b.shape))
+    batch = [c for c in ia if c in ib and c in out]
+    summed = [c for c in ia if c in ib and c not in out]
+    free_a = [c for c in ia if c not in ib]
+    free_b = [c for c in ib if c not in ia]
+
+    def prod(axes):
+        n = 1
+        for c in axes:
+            n *= size[c]
+        return n
+
+    a3 = a.permute(*[ia.index(c) for c in batch + free_a + summed]).reshape(
+        prod(batch), prod(free_a), prod(summed))
+    b3 = b.permute(*[ib.index(c) for c in batch + summed + free_b]).reshape(
+        prod(batch), prod(summed), prod(free_b))
+    res = _bmm_f32acc(a3, b3).reshape([size[c] for c in
+                                       batch + free_a + free_b])
+    order = batch + free_a + free_b
+    return res.permute(*[order.index(c) for c in out])

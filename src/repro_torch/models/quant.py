@@ -43,46 +43,65 @@ def fake_quant_act(x: torch.Tensor, fmt: str = "m2xfp") -> torch.Tensor:
     return get_codec(fmt).fake_quant_act(x)
 
 
-def init_linear(gen: torch.Generator, d_in: int, d_out: int,
-                device="cuda") -> torch.Tensor:
-    """Truncated-normal (+-3 sigma) init, fan-in scaled, bf16 (d_in, d_out)."""
-    w = torch.empty((d_in, d_out), dtype=torch.float32, device=device)
+def init_linear(gen: torch.Generator, d_in: int, d_out, device="cuda",
+                dtype=torch.bfloat16) -> torch.Tensor:
+    """Truncated-normal (+-3 sigma) init, fan-in scaled, (d_in, d_out) in
+    ``dtype``; ``d_out`` may be a tuple."""
+    shape = (d_in, *d_out) if isinstance(d_out, tuple) else (d_in, d_out)
+    w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (w * d_in ** -0.5).to(torch.bfloat16)
+    return (w * d_in ** -0.5).to(dtype)
+
+
+def _tail_streams(p: PackedTensor) -> tuple:
+    """Names of the streams laid out (rows, *weight tail) -- every stream
+    but a per-tensor scalar such as nvfp4's ``tscale``."""
+    tail = tuple(p.shape[1:])
+    return tuple(name for name, s in p.streams.items()
+                 if s.dim() == len(p.shape) and tuple(s.shape[1:]) == tail)
 
 
 def pack_serving_weight(w: torch.Tensor, fmt: str = "m2xfp") -> PackedTensor:
-    """(K, N) weight -> packed codec streams, groups along K (axis 0).
-    A weight on the "meta" device gives streams of the right shapes and
-    dtypes on "meta" without running the encoder: each (rows, N) stream's
-    rows per group of 32 are read off the encode of one group of two
-    columns; a per-tensor scalar (nvfp4's ``tscale`` (1, 1)) keeps its
-    shape."""
+    """(K, N...) weight -> packed codec streams, groups along K (axis 0):
+    each stream is (rows, N...) (a mixture-of-experts weight (K, E, N)
+    gives (rows, E, N) streams), a per-tensor scalar (nvfp4's ``tscale``
+    (1, 1)) keeps its shape. A weight on the "meta" device gives streams
+    of the right shapes and dtypes on "meta" without running the encoder:
+    each stream's rows per group of 32 are read off the encode of one
+    group of two columns."""
     codec = get_codec(fmt)
     if not codec.packed:
         raise ValueError(f"codec {fmt!r} has no packed serving path; "
                          f"packable codecs: {', '.join(packed_codecs())}")
-    if w.dim() != 2:
-        raise ValueError(f"pack_serving_weight takes a (K, N) weight, got "
-                         f"shape {tuple(w.shape)}")
-    k, n = w.shape
+    if w.dim() < 2:
+        raise ValueError(f"pack_serving_weight takes a (K, N...) weight, "
+                         f"got shape {tuple(w.shape)}")
+    k, tail = w.shape[0], tuple(w.shape[1:])
+    n = math.prod(tail)
     if w.is_meta:
         streams = {name: torch.empty(
             (s.shape[0] * (k // 32), n) if s.shape[1] == 2 else s.shape,
             dtype=s.dtype, device="meta")
             for name, s in codec.encode(torch.zeros(32, 2)).items()}
     else:
-        streams = codec.encode(w)
-    return PackedTensor(streams, (k, n), fmt)
+        streams = codec.encode(w.reshape(k, n))
+    streams = {name: s.reshape(s.shape[0], *tail)
+               if s.dim() == 2 and s.shape[1] == n else s
+               for name, s in streams.items()}
+    return PackedTensor(streams, (k, *tail), fmt)
 
 
 def decode_serving_weight(p: PackedTensor, dtype=None) -> torch.Tensor:
-    """Packed streams -> dense (K, N) weight in the codec's exact dtype
+    """Packed streams -> dense (K, N...) weight in the codec's exact dtype
     (bf16 for the E8M0-scaled codecs, f32 for nvfp4) unless ``dtype``
     overrides it."""
     codec = get_codec(p.codec)
-    k, n = p.shape
-    return codec.decode(p.streams, k, n).to(dtype or codec.decode_dtype)
+    k, n = p.shape[0], math.prod(p.shape[1:])
+    tail = _tail_streams(p)
+    streams = {name: s.reshape(s.shape[0], n) if name in tail else s
+               for name, s in p.streams.items()}
+    return codec.decode(streams, k, n).reshape(p.shape).to(
+        dtype or codec.decode_dtype)
 
 
 def _serve_matmul(x: torch.Tensor, w: PackedTensor) -> torch.Tensor:

@@ -194,6 +194,14 @@ class ServeEngine:
                  default_ttl_steps: Optional[int] = None,
                  verify_weights: bool = False, source_params=None,
                  device="cuda"):
+        if cfg.input_mode == "embeddings":
+            # the reference's engine builds, then fails at its first step
+            # (KeyError 'embeds'): its launches always pass token ids
+            raise NotImplementedError(
+                f"{cfg.name}: input_mode='embeddings' cannot be served by "
+                f"the engine, whose prompts are token ids; run the model "
+                f"directly: decode_step and prefill_chunk take "
+                f'{{"embeds": (B, T, d_model)}}')
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots

@@ -6,7 +6,9 @@ sequential decode at full width, with bf16 and packed KV caches, and the
 serving guard (its sentinels and stream validation against the CPU, and
 quarantine with the survivors bit-identical), and the attention variants
 (soft-caps and the tied head against the CPU, the guard on rings of two
-widths, chunked prefill on gemma2-9b and qwen3-8b). Each decides inside
+widths, chunked prefill on gemma2-9b and qwen3-8b), and the model families
+of slice 11 (the MoE engine and its routing against the CPU, embedding
+input's chunked prefill at full width). Each decides inside
 its body whether there is a CUDA device and skips without one. This file
 imports no JAX, so it also runs where only the port is installed:
 
@@ -396,29 +398,30 @@ def _serve_trace(monkeypatch) -> list:
 
 def _prefill_vs_decode(params, cfg, tokens, log, caches=None, index=None,
                        lengths=None):
-    """Feed tokens (B, T) through one prefill_chunk on ``caches`` (fresh
-    caches, positions from 0 and every row valid when None) and one at a
-    time through decode_step on a copy of them; ``log`` is _serve_trace's.
+    """Feed tokens (B, T) (embeddings (B, T, d) under
+    ``input_mode="embeddings"``) through one prefill_chunk on ``caches``
+    (fresh caches, positions from 0 and every row valid when None) and one
+    at a time through decode_step on a copy of them; ``log`` is _serve_trace's.
     Returns (prefill logits (B, T, V), decode logits (B, T, V), the first
     traced op whose valid row differs between the two as (label, position,
     differing elements, max |difference|), or None, the decode side's
     caches)."""
     from repro_torch.models.model import decode_step, init_caches, \
         prefill_chunk
-    b, t = tokens.shape
+    b, t = tokens.shape[:2]
     dev = tokens.device
+    key = "embeds" if cfg.input_mode == "embeddings" else "tokens"
     if caches is None:
         caches = init_caches(cfg, b, t, dev)
         index = torch.zeros(b, dtype=torch.long, device=dev)
         lengths = torch.full((b,), t, device=dev)
     copy = _clone_caches(caches)
     log.clear()
-    got = prefill_chunk(params, cfg, {"tokens": tokens}, caches, index,
-                        lengths)
+    got = prefill_chunk(params, cfg, {key: tokens}, caches, index, lengths)
     chunk_log, step_logs, steps = list(log), [], []
     for i in range(t):
         log.clear()
-        steps.append(decode_step(params, cfg, {"tokens": tokens[:, i:i + 1]},
+        steps.append(decode_step(params, cfg, {key: tokens[:, i:i + 1]},
                                  copy, index + i)[:, 0])
         step_logs.append(list(log))
     log.clear()
@@ -1069,3 +1072,93 @@ def test_cuda_engine_variants_match_cpu(variant):
     M2XFP_KERNEL.launches = 0
     card = _check_engine_card_matches_cpu(cfg, params, 2e-3)
     assert M2XFP_KERNEL.launches == 7 * cfg.n_layers * card.stats.steps
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-experts and embedding input
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,overrides", [
+    ("olmoe-1b-7b", {"n_experts": 64}), ("mixtral-8x22b", {})],
+    ids=["packed-experts", "dense-experts"])
+def test_cuda_engine_moe_match_cpu(arch, overrides):
+    """test_cuda_engine_codecs_match_cpu's comparison on the MoE smoke
+    models: olmoe-smoke with 64 experts (packed (K, E, N) experts, decoded
+    on the card) and mixtral-smoke (4 dense bf16 experts, window 32). The
+    card's engine fed the CPU run's tokens gives logits within 2e-3 at the
+    first and the last launch; kernel #1 runs 4 times per layer per launch
+    (q, k, v, o: the experts take no kernel)."""
+    _need_cuda()
+    from repro_torch.configs import smoke_config
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = smoke_config(arch, quant="serve", **overrides)
+    params = init_packed_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    M2XFP_KERNEL.launches = 0
+    card = _check_engine_card_matches_cpu(cfg, params, 2e-3)
+    assert M2XFP_KERNEL.launches == 4 * cfg.n_layers * card.stats.steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_experts,topk", [(64, 8), (8, 2)])
+def test_cuda_moe_routing_equals_cpu(n_experts, topk):
+    """moe_apply on the card against the CPU, d 256, 64 tokens in one
+    group: the routing (probabilities, top-k experts, their renormalised
+    weights, queue positions, kept assignments) bit for bit -- the router and softmax run
+    in float64 on both -- and the output within 2 bf16 ulps (the expert
+    products accumulate in f32 on the card, in float64 on the CPU)."""
+    _need_cuda()
+    import dataclasses
+    from repro_torch.models.moe import _capacity, moe_apply, route
+    from repro_torch.models.model import init_layer, pack_layer_for_serving
+    cfg = dataclasses.replace(_card_cfg(quant_format="m2xfp"), family="moe",
+                              n_experts=n_experts, experts_per_token=topk,
+                              moe_group_size=64, d_ff=128)
+    ffn = pack_layer_for_serving(init_layer(
+        torch.Generator().manual_seed(0), cfg, "cpu"), "m2xfp")["ffn"]
+    x = torch.randn(8, 8, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(
+        torch.bfloat16)
+    card = _to_device(ffn, "cuda")
+    cap = _capacity(64, topk, n_experts, cfg.moe_capacity_factor)
+    for a, b in zip(route(ffn["router"], x.reshape(1, 64, -1), topk, cap),
+                    route(card["router"], x.cuda().reshape(1, 64, -1), topk,
+                          cap)):
+        assert torch.equal(a, b.cpu())
+    want = moe_apply(ffn, x, cfg, cfg.quant).float()
+    got = moe_apply(card, x.cuda(), cfg, cfg.quant).float().cpu()
+    bound = 2.0 ** -7 * (torch.maximum(got.abs(), want.abs())
+                         + want.abs().max())
+    assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+def test_embeddings_prefill_chunk_bitexact_vs_decode_full_width(monkeypatch):
+    """_check_prefill_full_width's comparison for embedding input:
+    full-width musicgen-large (d 2048, ff 8192, its 2048-column head) cut to
+    2 layers, embeddings (8 slots x 8 positions, std 1) through one
+    prefill_chunk (64 rows) and through decode_step (8 rows at a time):
+    logits and caches bit for bit, the head's rows independent of M."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = get_config("musicgen-large", quant="serve", n_layers=2)
+    params = init_packed_params(torch.Generator("cuda").manual_seed(0), cfg,
+                                "cuda")
+    assert "embed" in params and params["lm_head"].shape == (2048, 2048)
+    embeds = torch.randn(8, 8, cfg.d_model, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(16)
+                         ).to(torch.bfloat16)
+    caches = init_caches(cfg, 8, 8, "cuda")
+    got, want, first, seq_caches = _prefill_vs_decode(
+        params, cfg, embeds, _serve_trace(monkeypatch), caches,
+        torch.zeros(8, dtype=torch.long, device="cuda"),
+        torch.full((8,), 8, device="cuda"))
+    assert bool(torch.isfinite(got).all())
+    assert first is None, f"first op whose rows differ: {first}"
+    assert torch.equal(got, want)
+    for i, (a, b) in enumerate(zip(caches["layers"],
+                                   seq_caches["layers"])):
+        for name in a:
+            assert torch.equal(a[name], b[name]), (i, name)

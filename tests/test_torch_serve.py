@@ -243,8 +243,9 @@ def check_prefill_chunk_bitexact_vs_decode(cfg, chunk, lengths,
     """After a shared two-token history, one prefill_chunk with ``lengths``
     valid tokens per row gives at every valid row and position the logits
     of decode_step fed the same tokens (rows advance only while valid), and
-    leaves the same caches, bf16 or packed, byte for byte. ``params``: the
-    packed tree (default ``init_packed_params`` from seed 0)."""
+    leaves the same caches, bf16 or packed, byte for byte. The inputs are
+    token ids, or embeddings under ``input_mode="embeddings"``. ``params``:
+    the packed tree (default ``init_packed_params`` from seed 0)."""
     from repro_torch.models.model import (
         decode_step, init_caches, prefill_chunk)
     from repro_torch.serve.prequant import init_packed_params
@@ -253,19 +254,26 @@ def check_prefill_chunk_bitexact_vs_decode(cfg, chunk, lengths,
                                     "cpu")
     b = len(lengths)
     rng = np.random.default_rng(chunk)
-    warm = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 2)))
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, chunk)))
+
+    def draw(t):                    # token ids, or embeddings of std 1
+        if cfg.input_mode == "embeddings":
+            return {"embeds": torch.from_numpy(rng.standard_normal(
+                (b, t, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)}
+        return {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (b, t)))}
+
+    def cols(batch, t):
+        return {k: v[:, t:t + 1] for k, v in batch.items()}
+    warm, toks = draw(2), draw(chunk)
     lens = torch.tensor(lengths)
     seq_c = init_caches(cfg, b, 16, "cpu")
     for t in range(2):                     # a shared two-token history
-        decode_step(params, cfg, {"tokens": warm[:, t:t + 1]}, seq_c,
-                    torch.full((b,), t))
+        decode_step(params, cfg, cols(warm, t), seq_c, torch.full((b,), t))
     chunk_c = _clone_caches(seq_c)
-    got = prefill_chunk(params, cfg, {"tokens": toks}, chunk_c,
-                        torch.full((b,), 2), lens)
+    got = prefill_chunk(params, cfg, toks, chunk_c, torch.full((b,), 2), lens)
     for t in range(chunk):
         step_c = _clone_caches(seq_c)
-        want = decode_step(params, cfg, {"tokens": toks[:, t:t + 1]}, step_c,
+        want = decode_step(params, cfg, cols(toks, t), step_c,
                            torch.full((b,), 2 + t))[:, 0]
         for row in np.nonzero((lens > t).numpy())[0]:   # rows still valid
             assert torch.equal(got[row, t], want[row]), (row, t)
@@ -339,16 +347,20 @@ def test_submit_rejects_overlong_and_empty_requests(reference):
 
 
 @pytest.mark.parametrize("overrides,named", [
-    ({"family": "moe"}, "family='moe'"),
-    ({"n_experts": 8, "experts_per_token": 2}, "experts"),
+    ({"family": "ssm"}, "family='ssm'"),
+    ({"family": "hybrid"}, "family='hybrid'"),
     ({"input_mode": "embeddings"}, "input_mode='embeddings'"),
 ])
 def test_unsupported_config_raises(overrides, named):
-    """Every feature check_supported still rejects raises, naming it."""
+    """Every feature the port still rejects raises, naming it: the
+    recurrent families at init, embedding input at the engine's
+    construction (the model takes it: tests/test_torch_moe.py)."""
     from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import ServeEngine
     cfg = _port_cfg(**overrides)
     with pytest.raises(NotImplementedError, match=named):
-        init_params(torch.Generator(), cfg, "cpu")
+        ServeEngine(init_params(torch.Generator(), cfg, "cpu"), cfg,
+                    device="cpu")
 
 
 if __name__ == "__main__":
