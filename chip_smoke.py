@@ -100,7 +100,7 @@ printing JSON lines:
   8. families -- the model families of ROADMAP A6c and A6d at full width,
                  m2xfp weights from SEED, bf16 KV. Embedding input at the
                  model level (no engine serves it): musicgen-large at its
-                 first 16 of 48 layers and pixtral-12b at its first 8 of
+                 first 8 of 48 layers and pixtral-12b at its first 8 of
                  40 (FAMILY_EMBED: the phase's time), 8 slots x
                  32 embeddings through prefill chunks of 8 and through
                  decode_step, slots valid for 32..1 positions: logits at
@@ -110,11 +110,13 @@ printing JSON lines:
                  codecs phase's traffic: olmoe-1b-7b at all 16 layers (64
                  experts, packed (K, E, N)) and mixtral-8x22b at its first
                  2 of 56 (8 experts, dense bf16, as the reference leaves
-                 them); before each serve, layer 0's moe_apply on the card
-                 at 8 and 64 tokens and its device time split into the
-                 experts' decode and products, then, beside the serve, the
-                 same calls on the CPU (routing bit for bit, the output
-                 within MOE_TOLERANCE); each serve
+                 them); for each of the four models, before its runs, the
+                 kernel at each of layer 0's projection shapes against its
+                 plain version as in phase 7; before each serve, layer 0's
+                 moe_apply on the card at 8 and 64 tokens and its device
+                 time split into the experts' decode and products, then,
+                 after the serve, the same calls on the CPU (routing bit
+                 for bit, the output within MOE_TOLERANCE); each serve
                  with phase 3's assertions but 4 kernel launches per layer
                  (q, k, v, o) and the agreement with chunks of 1 printed,
                  not asserted (a chunk routes as one group, as in the
@@ -163,7 +165,6 @@ limit, printed beside them.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import gc
 import json
 import re
@@ -229,13 +230,15 @@ VARIANTS = [("qwen2-0.5b", 24, MAX_LEN, (16, 64)),
 # phase's traffic: (arch, layers); mixtral's experts stay dense bf16 (8
 # experts: the reference packs experts only when E % 32 == 0), 4.83 GB a
 # layer, so it runs its first 2 layers. The phase has 150 s: with
-# musicgen-large at all 48 layers it took 235 s, and at 24 layers 185 s,
-# before olmoe's breakdown was cut to one profiled step and the MoE
-# checks' CPU side moved beside the serves (olmoe's device-bound serves,
-# its breakdown and the CPU side of its check took 133 s of those 185),
-# and then 134 s, within 16 s of the limit (musicgen 17.5 s of it; NVIDIA
-# H100 80GB HBM3, 700.00 W), so musicgen runs its first 16 layers.
-FAMILY_EMBED = [("musicgen-large", 16), ("pixtral-12b", 8)]
+# musicgen-large at all 48 layers it took 235 s, and at 24 layers 185 s
+# (olmoe's device-bound serves, its breakdown and the CPU side of its
+# check 133 s of those), then 110.9 s at 16 layers with olmoe's breakdown
+# cut to one profiled step and the MoE checks' CPU side beside the
+# serves. That CPU side now runs after them, so that it takes no host
+# time from the serves it would be measured beside (olmoe 21.9 s,
+# mixtral 12.9 s; 159.0 s for the phase alone, musicgen 15.2 s of it;
+# NVIDIA H100 80GB HBM3, 700.00 W), so musicgen runs its first 8 layers.
+FAMILY_EMBED = [("musicgen-large", 8), ("pixtral-12b", 8)]
 FAMILY_POSITIONS = 32
 FAMILY_LENGTHS = (32, 30, 25, 20, 13, 8, 5, 1)
 FAMILY_MOE = [("olmoe-1b-7b", 16), ("mixtral-8x22b", 2)]
@@ -1106,11 +1109,14 @@ def codecs_phase(params, timer, gen, device, kern, kernels) -> int:
     return launches
 
 
-def variant_gemm_check(timer, name: str, params: dict, kern, device):
+def variant_gemm_check(timer, name: str, params: dict, kern, device,
+                       phase: str = "variants"):
     """``kern`` on the distinct projection shapes of layer 0 of ``params``
-    (a packed model), x random bf16 at M = 8 and 64: kernel_vs_plain,
-    assert_rows_independent, the split plan and the event time at M = 8
-    beside the bound. These launches are not counted as the path's."""
+    (a packed model; its 2-D packed weights, so not packed (K, E, N)
+    experts, which no kernel multiplies), x random bf16 at M = 8 and 64:
+    kernel_vs_plain, assert_rows_independent, the split plan and the event
+    time at M = 8 beside the bound, printed as ``phase`` lines. These
+    launches are not counted as the path's."""
     from repro_torch.core.codecs import PackedTensor
     from repro_torch.kernels import _build, ref
     lp = params["layers"][0]
@@ -1118,7 +1124,8 @@ def variant_gemm_check(timer, name: str, params: dict, kern, device):
     for part, names in (("attn", ("wq", "wk", "wv", "wo")),
                         ("ffn", ("gate", "up", "down"))):
         for w in names:
-            if isinstance(lp[part][w], PackedTensor):
+            if isinstance(lp[part][w], PackedTensor) \
+                    and len(lp[part][w].shape) == 2:
                 shapes.setdefault(tuple(lp[part][w].shape),
                                   ([], lp[part][w].streams))[0].append(w)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -1137,7 +1144,7 @@ def variant_gemm_check(timer, name: str, params: dict, kern, device):
         t_k = timer(lambda: kern(x8, streams))
         b_ms, b_by, _ = bound(8, k, n, sum(s.nbytes
                                            for s in streams.values()))
-        emit("variants", model=name, check="gemm_shape", weights=names,
+        emit(phase, model=name, check="gemm_shape", weights=names,
              K=k, N=n, split_k=_build.split_k(k, n),
              tolerance=TOLERANCE, max_ratio_to_tolerance=ratio,
              row_independent=True, kernel_ms_at_m8=t_k, bound_ms=b_ms,
@@ -1227,7 +1234,7 @@ def variants_phase(timer, device, kern, kernels) -> int:
     return launches
 
 
-def embed_input_check(arch: str, layers: int, device, kern,
+def embed_input_check(timer, arch: str, layers: int, device, kern,
                       kernels) -> int:
     """Embedding input at full width, the first ``layers`` layers of
     ``arch``: 8 slots of FAMILY_POSITIONS embeddings through prefill_chunk
@@ -1235,7 +1242,8 @@ def embed_input_check(arch: str, layers: int, device, kern,
     through decode_step one position at a time (a slot past its length
     keeps its cache rows). The logits at every valid position must be
     finite and equal bit for bit, the caches equal, and ``kern`` launched
-    7 times per layer per launch, no other kernel. Returns its launches."""
+    7 times per layer per launch, no other kernel; before the runs,
+    variant_gemm_check on layer 0. Returns its launches."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import decode_step, init_caches, \
         prefill_chunk
@@ -1248,6 +1256,7 @@ def embed_input_check(arch: str, layers: int, device, kern,
                          generator=gen, device=device).to(torch.bfloat16)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
+    variant_gemm_check(timer, arch, params, kern, device, phase="families")
     lengths = torch.tensor(FAMILY_LENGTHS, device=device)
     for k in kernels:
         k.launches = 0
@@ -1314,12 +1323,13 @@ def moe_apply_check(timer, cfg, ffn: dict, device):
     """Layer 0's moe_apply on the card at 8 and 64 tokens (a decode step's
     and a chunk of 8's), then its device time at 8 tokens, split into the
     packed experts' decode and the three expert products (CUDA events, L2
-    flushed). Returns the CPU side as a function, to be run while the card
-    serves (the CPU's moe_apply decodes every expert, seconds a call at
-    olmoe's width): it holds the routing (probabilities, top-k experts and
-    weights, queue positions, kept assignments) to the card's bit for bit
-    and the output within MOE_TOLERANCE, raises on a difference, and
-    returns the lines to print."""
+    flushed). Returns the CPU side as a function, run after the serve so
+    that it takes no host time from it (the CPU's moe_apply decodes every
+    expert, seconds a call at olmoe's width): it holds the routing
+    (probabilities, top-k experts and weights, queue positions, kept
+    assignments) to the card's bit for bit and the output within
+    MOE_TOLERANCE, raises on a difference, and returns the lines to
+    print."""
     from repro_torch.core.codecs import PackedTensor
     from repro_torch.models.moe import _capacity, moe_apply, route
     from repro_torch.models.numerics import einsum_f32acc
@@ -1394,16 +1404,18 @@ def moe_apply_check(timer, cfg, ffn: dict, device):
 
 def families_phase(timer, device, kern, kernels) -> int:
     """Embedding input (FAMILY_EMBED, embed_input_check), then each of
-    FAMILY_MOE: m2xfp weights packed on the card from SEED, moe_apply_check
-    on layer 0 (its CPU side beside the serve), served with serve_phase's
-    assertions (4 launches of ``kern`` per layer per engine launch; the
-    agreement with chunks of 1 printed, not asserted); then olmoe's decode
-    step split as in phase 3. Returns the launches of ``kern``."""
+    FAMILY_MOE: m2xfp weights packed on the card from SEED,
+    variant_gemm_check and moe_apply_check's card side on layer 0, served
+    with serve_phase's assertions (4 launches of ``kern`` per layer per
+    engine launch; the agreement with chunks of 1 printed, not asserted);
+    olmoe's decode step split as in phase 3; then moe_apply_check's CPU
+    side. Returns the launches of ``kern``."""
     from repro_torch.configs import get_config
     from repro_torch.serve.prequant import init_packed_params
     launches = 0
     for arch, layers in FAMILY_EMBED:
-        launches += embed_input_check(arch, layers, device, kern, kernels)
+        launches += embed_input_check(timer, arch, layers, device, kern,
+                                      kernels)
         gc.collect()
         torch.cuda.empty_cache()
     for arch, layers in FAMILY_MOE:
@@ -1424,22 +1436,18 @@ def families_phase(timer, device, kern, kernels) -> int:
              init_and_pack_s=time.perf_counter() - t0)
         seconds = {"init_and_pack": time.perf_counter() - t0}
         t0 = time.perf_counter()
+        variant_gemm_check(timer, arch, params, kern, device,
+                           phase="families")
+        seconds["gemm_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         on_cpu = moe_apply_check(timer, cfg, params["layers"][0]["ffn"],
                                  device)
         seconds["moe_apply_check_card"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        # the CPU side of the check runs beside the serve, which waits on
-        # the card (olmoe's step is device-bound), so the serve line's
-        # host-clock times may read high while it runs
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            cpu_side = pool.submit(on_cpu)
-            eng, n, _ = serve_phase(
-                "m2xfp", device, kern, kernels, layers=layers,
-                params=params, traffic=CODEC_TRAFFIC, arch=arch)
-            seconds["serve_chunks_8_and_1"] = time.perf_counter() - t0
-            for line in cpu_side.result():
-                emit("families", **line)
-        seconds["serve_and_cpu_check"] = time.perf_counter() - t0
+        eng, n, _ = serve_phase(
+            "m2xfp", device, kern, kernels, layers=layers, params=params,
+            traffic=CODEC_TRAFFIC, arch=arch)
+        seconds["serve_chunks_8_and_1"] = time.perf_counter() - t0
         del params
         launches += n
         if cfg.n_experts % 32 == 0:
@@ -1450,10 +1458,14 @@ def families_phase(timer, device, kern, kernels) -> int:
             t0 = time.perf_counter()
             decode_breakdown(eng, device, kern, steps=1, guard=False)
             seconds["decode_breakdown"] = time.perf_counter() - t0
-        emit("families", check="moe_seconds", model=cfg.name, **seconds)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for line in on_cpu():
+            emit("families", **line)
+        seconds["moe_apply_check_cpu"] = time.perf_counter() - t0
+        emit("families", check="moe_seconds", model=cfg.name, **seconds)
     return launches
 
 

@@ -72,11 +72,15 @@ LOGIT_TOL = dict(rtol=0.0, atol=2e-5)
 # (c) with experts: each expert product's f32 sum (float64 in the port, f32
 # in XLA's order in the reference) is rounded to bf16, three times a layer
 # for every expert slot, so an output within an ulp of a bf16 rounding
-# edge can flip and move a logit further: measured, one row of the 96 in
-# olmoe-smoke's decode by 4.9e-4, every other row within 1.2e-7. 2e-3 is
-# the card-against-CPU tests' bound for such a flip (test_torch_gpu.py);
-# a routing or masking fault moves logits by 0.1 or more
-MOE_LOGIT_TOL = dict(rtol=0.0, atol=2e-3)
+# edge can flip and move a logit further. Every position is held to
+# LOGIT_TOL, except at most FLIP_ROWS[(case, run)] positions (rows of
+# logits), each within FLIP_TOL: measured, one row of the 96 in
+# olmoe-smoke's decode off by 4.9e-4, every other row of every case and
+# run within 1.2e-7. 2e-3 is the card-against-CPU tests' bound for such a
+# flip (test_torch_gpu.py); a routing or masking fault moves logits by 0.1
+# or more
+FLIP_TOL = 2e-3
+FLIP_ROWS = {("olmoe-smoke", "decode"): 1}
 # (b): the port's expert products accumulate in float64 (on the CPU), the
 # reference's in f32 in XLA's order, and each product's output is rounded
 # to bf16 (gate, up, silu(gate) * up, down, the combined sum), so an output
@@ -553,24 +557,37 @@ def _decode_seq(params, cfg):
     return torch.stack(out, 1).numpy(), caches
 
 
+def _assert_logits_agree(got: np.ndarray, want: np.ndarray,
+                         flips: int) -> None:
+    """Every row (position) of ``got`` within LOGIT_TOL of ``want``, except
+    at most ``flips`` rows, which must be within FLIP_TOL."""
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0.0, atol=FLIP_TOL)
+    err = np.abs(got - want).reshape(-1, got.shape[-1]).max(axis=-1)
+    off = np.flatnonzero(err > LOGIT_TOL["atol"])
+    assert len(off) <= flips, (
+        f"{len(off)} rows beyond {LOGIT_TOL['atol']} (at most {flips} "
+        f"allowed): rows {off.tolist()}, errors {err[off].tolist()}")
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_decode_and_prefill_match_reference(reference, case):
     from repro_torch.models.model import prefill_chunk
     ref = reference[case]
     cfg = port_cfg(case)
-    tol = MOE_LOGIT_TOL if cfg.is_moe else LOGIT_TOL
     params = _port_packed(reference, case)
     logits, caches = _decode_seq(params, cfg)
-    np.testing.assert_allclose(logits, ref["decode_logits"], **tol)
+    _assert_logits_agree(logits, ref["decode_logits"],
+                         FLIP_ROWS.get((case, "decode"), 0))
     _assert_caches_equal(caches, ref["decode_caches"])
     caches = _caches(cfg)
     seq = seq_inputs(cfg)[:, :ENGINE["prefill_chunk"]]
     got = prefill_chunk(params, cfg, _batch(cfg, seq), caches,
                         torch.zeros(len(seq), dtype=torch.long),
                         torch.from_numpy(LENGTHS)).numpy()
-    for b, n in enumerate(LENGTHS):
-        np.testing.assert_allclose(got[b, :n], ref["prefill_logits"][b, :n],
-                                   **tol)
+    valid = np.arange(got.shape[1])[None] < LENGTHS[:, None]
+    _assert_logits_agree(got[valid], ref["prefill_logits"][valid],
+                         FLIP_ROWS.get((case, "prefill"), 0))
     _assert_caches_equal(caches, ref["prefill_caches"])
 
 
@@ -597,9 +614,9 @@ def test_padding_rows_match_reference_on_a_wrapped_ring(reference):
     got = prefill_chunk(params, cfg, _batch(cfg, chunk), caches,
                         torch.full((b,), hist.shape[1]),
                         torch.tensor(WRAPPED_LENGTHS)).numpy()
-    np.testing.assert_allclose(
+    _assert_logits_agree(
         got, reference["mixtral-smoke"]["wrapped_prefill_logits"],
-        **MOE_LOGIT_TOL)
+        FLIP_ROWS.get(("mixtral-smoke", "wrapped"), 0))
 
 
 # ---------------------------------------------------------------------------
