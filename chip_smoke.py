@@ -40,7 +40,7 @@ printing JSON lines:
                  off (guard_wall_ms_delta, guard_device_ms_delta)
   4. serve    -- the same traffic with an m2xfp-packed KV cache
                  (kv_quant="m2xfp", paper Sec. 6.4; the main path's step 5)
-                 on the first 8 of the same layers (PACKED_KV_LAYERS): the
+                 on the first 4 of the same layers (PACKED_KV_LAYERS): the
                  same assertions, and beside them the packed pages' bytes
                  against phase 3's pages at the same depth; then its
                  decode step split as in phase 3
@@ -82,7 +82,7 @@ printing JSON lines:
                  (the QKV biases and qk-norm weights seeded too, not
                  init's zeros and ones: repro_torch.testing.
                  fill_attention_extras), with the codecs phase's traffic:
-                 qwen2-0.5b at all 24 layers (QKV bias, the tied
+                 qwen2-0.5b at its first 12 of 24 layers (QKV bias, the tied
                  151,936-row head, 128-column wk/wv), qwen3-8b at its first
                  8 of 36 (qk-norm), and gemma2-9b at its first 8 of 42 (4
                  local/global pairs, its window of 4096, soft-caps 50 and
@@ -122,8 +122,32 @@ printing JSON lines:
                  not asserted (a chunk routes as one group, as in the
                  reference); then olmoe's decode step split as in phase 3
                  over one profiled step, without the guard's on/off runs
-  9. serve    -- phase 3 with the mxfp4 codec, at 8 layers (MXFP4_LAYERS)
-  10. bitmath -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
+  9. train    -- training (ROADMAP A8) of full-width paper-llama2-7b at its
+                 first 4 of 32 layers (TRAIN_LAYERS; the depth the card's
+                 80 GB holds with f32 masters, m, v and gradients, 18 B a
+                 parameter) on SyntheticLM from SEED, 2 x 2048 tokens a
+                 step, AdamW (warmup 2, cosine to step 8), remat on: 8
+                 steps with quant "none" and 8 with "qat" (m2xfp
+                 fake-quant with the straight-through estimator), each
+                 step's loss, grad_norm and lr finite (asserted; whether
+                 the loss falls is printed) beside its time (CUDA events)
+                 and the peak memory, no kernel launched (the reference's
+                 training reaches none); the first 3 "none" steps run
+                 twice and give the same bits; the none-trained model,
+                 cast to its compute dtypes and packed m2xfp, served
+                 through the engine with the codecs phase's traffic (phase
+                 3's assertions), then loss_fn under serve on a held-out
+                 2 x 2048 batch through the m2xfp kernel (7 launches a
+                 layer, M = 4096), the kernel at M = 4096 on layer 0's wq
+                 and its real operand against its plain version within
+                 TOLERANCE, and the held-out losses under none, serve and
+                 qat/mxfp4 printed (no inequality asserted); last, after
+                 the timed work, one train step at full width and 1 layer
+                 (B = 1, S = 64) under none and qat on the card against
+                 the same step on the CPU (repro_torch.testing.train's
+                 tolerances)
+  10. serve   -- phase 3 with the mxfp4 codec, at 4 layers (MXFP4_LAYERS)
+  11. bitmath -- the FP4/FP6 bit helpers of csrc/mx_bits.cuh on every code:
                  the quantize engine on a 4097-point sweep of [-8, 8] (every
                  FP4 and FP6 code, midpoint and saturation) and the W4A4 GEMM
                  against an identity weight on random X streams (every
@@ -132,7 +156,7 @@ printing JSON lines:
                  (identity x on random streams: every code, meta field and
                  scale byte 0-250, subnormal weights included) equal to the
                  plain decoders
-  11. w4a4    -- the W4A4 datapath (quantize engine, then the fully packed
+  12. w4a4    -- the W4A4 datapath (quantize engine, then the fully packed
                  GEMM) through ``repro_torch.kernels`` for the seven
                  projections of one full-width paper-llama2-7b layer at M in
                  {1, 8, 64, 129, 2048}: streams byte-identical to the plain
@@ -146,7 +170,7 @@ printing JSON lines:
                  share_of_bound at every point); then the launch floor (the
                  event time of torch.zeros(1)) and the quantize engine's
                  kernel-only time at M = 8 from torch.profiler
-  12. flash   -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
+  13. flash   -- flash attention, 32 heads x hd 128 (one paper-llama2-7b
                  layer's prefill): causal at S = 512 and 2048, S = 2048 with
                  a 512 window, with softcap 50 on q scaled by 8 (so scores
                  reach the cap), and with the last 64 keys invalid and a
@@ -192,16 +216,18 @@ N_SLOTS, MAX_LEN = 8, 512
 # path) at half of it: with them at 16 and 32 layers and the variants
 # phase the script took 1145.8 s of its 1200 s limit on a slow host (guard
 # phase 304.9 s, mxfp4 77.9 s, variants 138.7 s; NVIDIA H100 80GB HBM3,
-# 700.00 W).
-MXFP4_LAYERS = 8
+# 700.00 W). With the train phase, mxfp4 runs 4 layers (8 before; 42.9 s
+# at 8 layers in PR 21).
+MXFP4_LAYERS = 4
 GUARD_LAYERS = 16
 # The packed-KV serve phase (an earlier path since the guard phase came)
 # runs at a quarter of the depth: with it at full depth and the guard phase
 # the script took 1170 s of its 1200 s limit (packed-KV phase 540 s, guard
 # phase 233 s), and at 16 layers beside the codecs phase 1085.9 s on a slow
-# host (packed-KV phase 283.6 s; NVIDIA H100 80GB HBM3, 700.00 W). Its
-# first 8 layers are the full-depth weights' first 8.
-PACKED_KV_LAYERS = 8
+# host (packed-KV phase 283.6 s; NVIDIA H100 80GB HBM3, 700.00 W); then
+# at 8 layers about 125 s; with the train phase at 4. Its first layers are
+# the full-depth weights' first.
+PACKED_KV_LAYERS = 4
 # Guard phase traffic: 12 requests (more than the 8 slots, so a quarantined
 # slot is reused), prompts drawn by SEED from 16..64 tokens, GUARD_TOKENS new
 # tokens each, on the first GUARD_LAYERS of the serve phase's m2xfp weights.
@@ -218,7 +244,8 @@ CODEC_WEIGHT_COLS = 512     # the CPU side of the Sg-EM search is slow at N
 # positions hold fewer than its prompts, so its local ring (window 4096,
 # min(4096, 128) positions) and its global ring both wrap, as the
 # reference's engine allows for a sliding-window configuration.
-VARIANTS = [("qwen2-0.5b", 24, MAX_LEN, (16, 64)),
+# qwen2-0.5b runs its first 12 of 24 layers since the train phase came.
+VARIANTS = [("qwen2-0.5b", 12, MAX_LEN, (16, 64)),
             ("qwen3-8b", 8, MAX_LEN, (16, 64)),
             ("gemma2-9b", 8, 128, (96, 160))]
 # Families phase (ROADMAP A6c, A6d), full widths, m2xfp weights from SEED,
@@ -242,6 +269,18 @@ FAMILY_EMBED = [("musicgen-large", 8), ("pixtral-12b", 8)]
 FAMILY_POSITIONS = 32
 FAMILY_LENGTHS = (32, 30, 25, 20, 13, 8, 5, 1)
 FAMILY_MOE = [("olmoe-1b-7b", 16), ("mixtral-8x22b", 2)]
+# Train phase (ROADMAP A8): full-width paper-llama2-7b at its first
+# TRAIN_LAYERS layers. Plain single-device AdamW holds f32 masters, m and v,
+# f32 gradients and a bf16 compute copy: 18 B a parameter, 121 GB at 32
+# layers (6.74 B parameters), 19.3 GB at 4 (1.072 B: 4 x 202,375,168 +
+# 2 x 131,072,000), which leaves the card room for the activations of
+# TRAIN_BATCH x TRAIN_SEQ tokens (two q tiles, four KV chunks a layer).
+# TRAIN_REPEAT_STEPS "none" steps run twice (bit-identical); the card-vs-CPU
+# step is (layers, batch, seq) TRAIN_CHECK.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 2048, 8
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
+TRAIN_REPEAT_STEPS = 3
+TRAIN_CHECK = (1, 1, 64)
 # moe_apply on the card against the CPU: the routing bit for bit (router
 # and softmax in float64 on both), the output within 2 bf16 ulps of the
 # larger magnitude plus 2^-7 of the largest |output| (the expert products
@@ -1469,6 +1508,208 @@ def families_phase(timer, device, kern, kernels) -> int:
     return launches
 
 
+def _finite_metrics(quant: str, step: int, metrics: dict) -> dict:
+    vals = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"train {quant} step {step}: non-finite "
+                             f"metrics {vals}")
+    return vals
+
+
+def train_breakdown(step_fn, state, batch, wall_ms: float) -> None:
+    """Device time of one more train step by kernel (torch.profiler; the
+    step's result is dropped) beside ``wall_ms``, the median event time of
+    the timed steps after the first; idle share ``1 - device / wall``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + \
+                ev.self_device_time_total / 1e3
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    emit("train_breakdown", quant="none", wall_ms=wall_ms, device_ms=total,
+         device_idle_share=1 - total / wall_ms,
+         gemm_ms=sum(v for k, v in by_name.items() if "gemm" in k.lower()),
+         top_kernels_ms={k[:80]: v for k, v in top})
+
+
+def train_phase(device, kern, kernels) -> int:
+    """ROADMAP A8 on full-width paper-llama2-7b at TRAIN_LAYERS layers
+    (module docstring, phase 9). Returns the m2xfp kernel's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import loss_fn, pack_params_for_serving
+    from repro_torch.models.quant import fake_quant_act
+    from repro_torch.testing.train import (GRAD_L2, GRAD_TOL, LOSS_RTOL,
+                                           step_card_vs_cpu)
+    from repro_torch.train import (AdamWConfig, cast_for_compute,
+                                   make_train_state, make_train_step)
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = get_config("paper-llama2-7b", n_layers=TRAIN_LAYERS)
+    to_dev = lambda b: {k: torch.from_numpy(v).to(device)  # noqa: E731
+                        for k, v in b.items()}
+    data = SyntheticLM(DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                  vocab=cfg.vocab_size, seed=SEED))
+    batches = [to_dev(data.batch_at(i)) for i in range(TRAIN_STEPS)]
+    held_out = to_dev(SyntheticLM(DataConfig(
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab_size,
+        seed=SEED + 99)).batch_at(0))
+    opt = AdamWConfig(**TRAIN_OPT)
+
+    def fresh(c, layers=TRAIN_LAYERS):
+        c = dataclasses.replace(c, n_layers=layers)
+        return make_train_state(torch.Generator(device=device).manual_seed(
+            SEED), c, device=device)
+
+    losses, step_ms = {}, {}
+
+    def train(quant, steps):
+        """``steps`` steps from a fresh state; returns the state. Raises if
+        a kernel launched."""
+        c = dataclasses.replace(cfg, quant=quant)
+        step_fn = make_train_step(c, opt)
+        state = fresh(c)
+        losses[quant], step_ms[quant] = [], []
+        for k in kernels:
+            k.launches = 0
+        for i in range(steps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            state, m = step_fn(state, batches[i])
+            t1.record()
+            torch.cuda.synchronize()
+            vals = _finite_metrics(quant, i, m)
+            losses[quant].append(vals["loss"])
+            step_ms[quant].append(t0.elapsed_time(t1))
+            emit("train_step", quant=quant, quant_format=c.quant_format,
+                 step=i, step_ms=step_ms[quant][-1], **vals)
+        launched = {k.name: k.launches for k in kernels if k.launches}
+        if launched:
+            raise AssertionError(f"train {quant} launched {launched}: the "
+                                 f"reference's training reaches no kernel")
+        return state
+
+    seconds = {}
+    t_phase = t_lap = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_lap
+        now = time.perf_counter()
+        seconds[name] = now - t_lap
+        t_lap = now
+
+    # the first TRAIN_REPEAT_STEPS "none" steps twice: the same bits
+    runs = [train("none", TRAIN_REPEAT_STEPS) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*map(tree_leaves, runs)))
+    del runs
+    if not same:
+        raise AssertionError(f"two card runs of {TRAIN_REPEAT_STEPS} train "
+                             f"steps gave different bits")
+    emit("train_deterministic", steps=TRAIN_REPEAT_STEPS, same_bits=same)
+    lap("repeat")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train("none", TRAIN_STEPS)
+    peak_none = torch.cuda.max_memory_allocated()
+    train_breakdown(make_train_step(cfg, opt), state, batches[0],
+                    statistics.median(step_ms["none"][1:]))
+    params, trained = state["params"], losses["none"]
+    del state
+    lap("none")
+
+    # the trained model, its compute dtypes packed m2xfp, served and scored
+    scfg = dataclasses.replace(cfg, quant="serve")
+    packed = pack_params_for_serving(cast_for_compute(params), scfg)
+    eng, serve_launches, _ = serve_phase(
+        "m2xfp", device, kern, kernels, layers=TRAIN_LAYERS, params=packed,
+        traffic=CODEC_TRAFFIC)
+    del eng
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_serve = float(loss_fn(packed, scfg, held_out))
+    loss_serve_s = time.perf_counter() - t0
+    loss_launches = kern.launches
+    others = {k.name: k.launches for k in kernels if k is not kern
+              and k.launches}
+    expected = 7 * TRAIN_LAYERS
+    if loss_launches != expected or others or not np.isfinite(loss_serve):
+        raise AssertionError(f"loss_fn under serve: {loss_launches} "
+                             f"launches (expected {expected}), others "
+                             f"{others}, loss {loss_serve}")
+    lp = packed["layers"][0]
+    h = packed["embed"][held_out["tokens"]].reshape(-1, cfg.d_model)
+    x = fake_quant_act(rms_norm(h, lp["attn_norm"], cfg.norm_eps).to(
+        torch.float32)).to(torch.bfloat16)
+    wp = lp["attn"]["wq"].streams
+    _, _, _, ratio, max_abs = kernel_vs_plain(
+        "train wq", kern, wp, ref.decode_w_sgem_ref(wp), ref.m2xfp_matmul_ref,
+        x, x.shape[0])
+    qcfg = dataclasses.replace(cfg, quant="qat", quant_format="mxfp4")
+    with torch.no_grad():
+        compute = cast_for_compute(params)
+        held = {"none": float(loss_fn(compute, cfg, held_out)),
+                "serve_m2xfp": loss_serve,
+                "qat_mxfp4": float(loss_fn(compute, qcfg, held_out))}
+    del compute, packed, params
+    emit("train_served", model=cfg.name, layers=TRAIN_LAYERS,
+         held_out_tokens=TRAIN_BATCH * TRAIN_SEQ, held_out_losses=held,
+         serve_loss_launches=loss_launches,
+         serve_loss_launches_expected=expected, serve_loss_s=loss_serve_s,
+         gemm_m=x.shape[0], gemm_k=cfg.d_model, gemm_max_abs_err=max_abs,
+         gemm_max_ratio_to_tolerance=ratio, tolerance=TOLERANCE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("served")
+
+    torch.cuda.reset_peak_memory_stats()
+    state = train("qat", TRAIN_STEPS)
+    peak_qat = torch.cuda.max_memory_allocated()
+    losses["none"] = trained
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("qat")
+
+    # one step on the card against the CPU, after the timed card work
+    checks = {}
+    for quant in ("none", "qat"):
+        c = dataclasses.replace(cfg, quant=quant, n_layers=TRAIN_CHECK[0])
+        st = fresh(c, TRAIN_CHECK[0])
+        one = to_dev(SyntheticLM(DataConfig(
+            batch=TRAIN_CHECK[1], seq=TRAIN_CHECK[2], vocab=cfg.vocab_size,
+            seed=SEED)).batch_at(0))
+        checks[quant] = step_card_vs_cpu(c, st["params"], one)
+        del st
+        lap(f"card_vs_cpu_{quant}")
+    emit("train_card_vs_cpu", layers=TRAIN_CHECK[0], batch=TRAIN_CHECK[1],
+         seq=TRAIN_CHECK[2], grad_tol=GRAD_TOL, grad_l2=GRAD_L2,
+         loss_rtol=LOSS_RTOL, checks=checks)
+    failed = [q for q, res in checks.items() if not res["within"]]
+    if failed:
+        raise AssertionError(f"train step card vs CPU outside the "
+                             f"tolerances: {failed}")
+    emit("train", model=cfg.name, layers=TRAIN_LAYERS, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=TRAIN_STEPS, opt=TRAIN_OPT, remat=cfg.remat,
+         peak_memory_bytes={"none": peak_none, "qat": peak_qat},
+         loss_fell={q: ls[-1] < ls[0] for q, ls in losses.items()},
+         seconds=seconds, total_s=time.perf_counter() - t_phase,
+         m2xfp_launches=serve_launches + loss_launches)
+    return serve_launches + loss_launches
+
+
 def bitmath_phase(gen, device):
     """The bit helpers of csrc/mx_bits.cuh on every code, through the two
     W4A4 kernels on constructed inputs, and the serve GEMMs' weight decode
@@ -1924,10 +2165,16 @@ def main() -> int:
     variant_launches = variants_phase(timer, device, M2XFP, kernels)
     lap("variants")
     family_launches = families_phase(timer, device, M2XFP, kernels)
+    lap("families")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = train_phase(device, M2XFP, kernels)
     summary["m2xfp_matmul"]["launches"] = (
         launches + kv_launches + guard_launches + ideal_launches
-        + variant_launches + family_launches)
-    lap("families")
+        + variant_launches + family_launches + train_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train")
     eng, summary["mxfp4_matmul"]["launches"], _ = serve_phase(
         "mxfp4", device, MXFP4, kernels, layers=MXFP4_LAYERS)
     decode_breakdown(eng, device, MXFP4)

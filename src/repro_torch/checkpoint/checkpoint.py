@@ -1,5 +1,6 @@
 """Atomic, self-verifying checkpoints on disk (port of
-repro.checkpoint.checkpoint, without its background writer thread).
+repro.checkpoint.checkpoint), and ``CheckpointManager``, which writes
+train states in the background and resumes from the newest.
 
 The on-disk format is the reference's, so either package restores what the
 other saved:
@@ -24,12 +25,19 @@ gives the reference's paths and order for a parameter tree).
   * verified: a restore checks each leaf's CRC-32 against the manifest
     (manifests written before CRCs existed restore unverified) and raises
     :class:`CheckpointCorruptError` naming the leaf.
+
+``CheckpointManager`` keeps one write in flight: it copies the train
+state to the host on the caller's thread (a consistent snapshot while
+training goes on) and writes it with ``save_state`` on a worker thread, in
+the reference's leaf paths (``repro_torch.convert.train_state_leaves``),
+so either package resumes what the other saved.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 import zipfile
 import zlib
 from typing import Mapping, Optional
@@ -38,7 +46,8 @@ import numpy as np
 import torch
 
 __all__ = ["save_state", "restore_state", "read_manifest", "latest_step",
-           "all_steps", "CheckpointCorruptError", "leaf_crc32"]
+           "all_steps", "CheckpointCorruptError", "leaf_crc32",
+           "CheckpointManager"]
 
 _MANIFEST = "manifest.json"
 _BF16_RECORD = np.dtype("V2")
@@ -202,3 +211,61 @@ def restore_state(ckpt_dir: str, template: Mapping,
                                  f"{arr.shape} vs {expect}")
             out[key] = _to_tensor(arr, entry.get("dtype", str(arr.dtype)))
     return out, manifest["extra"]
+
+
+class CheckpointManager:
+    """Background checkpointing of train states, and resume from the newest
+    complete step. ``maybe_save`` writes every ``every`` steps (or when
+    forced), keeping the ``keep`` newest."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3, every: int = 100):
+        self.dir = ckpt_dir
+        self.keep = keep
+        self.every = every
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def maybe_save(self, step: int, state: dict,
+                   extra: Optional[dict] = None, force: bool = False) -> bool:
+        """Snapshot ``state`` (the port's train state) to the host now and
+        write it as step ``step`` on a worker thread, after the previous
+        write has finished. Returns whether a write started."""
+        from repro_torch.convert import train_state_leaves
+        if not force and step % self.every != 0:
+            return False
+        self.wait()                             # one in flight at a time
+        snapshot = train_state_leaves(state, "cpu")     # fresh host copies
+
+        def work():
+            try:
+                save_state(self.dir, step, snapshot, extra, self.keep)
+            except BaseException as e:          # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+        return True
+
+    def wait(self) -> None:
+        """Block until the write in flight (if any) is on disk; re-raise
+        its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def resume(self, template: dict, cfg, device="cuda"):
+        """(state, extra, step) from the newest complete checkpoint, shaped
+        like the train state ``template`` (its values are not read), on
+        ``device``; (None, None, None) when there is none."""
+        from repro_torch.convert import (from_train_state_leaves,
+                                         train_state_leaves)
+        step = latest_step(self.dir)
+        if step is None:
+            return None, None, None
+        flat, extra = restore_state(
+            self.dir, train_state_leaves(template, "meta"), step)
+        return from_train_state_leaves(flat, template, cfg, device), \
+            extra, step

@@ -7,7 +7,11 @@ port never sees a JAX type: a packed leaf arrives flattened as
 ``{"codec": str, "shape": tuple, "streams": {name: array}}``.
 ``stack_layers`` is its inverse, and ``flat_leaves`` / ``from_flat_leaves``
 map such a tree to and from the leaf paths of the reference's checkpoints
-(``repro_torch.checkpoint``).
+(``repro_torch.checkpoint``). ``from_jax_train_state`` and
+``to_jax_train_state`` do the same for a train state
+(``{"params", "opt": {"m", "v", "step"}[, "err"]}``: m, v and err mirror
+the parameter tree), and ``train_state_leaves`` /
+``from_train_state_leaves`` carry one to and from its checkpoint leaves.
 
 Layouts: the reference stacks per-layer leaves (packed streams included) on
 axis 0 under ``layers``; the port keeps a list of per-layer dicts. bf16
@@ -22,7 +26,10 @@ import torch
 from repro_torch.core.codecs import PackedTensor
 
 __all__ = ["from_jax_tree", "to_tensor", "stack_layers", "flat_leaves",
-           "from_flat_leaves"]
+           "from_flat_leaves", "from_jax_train_state", "to_jax_train_state",
+           "train_state_leaves", "from_train_state_leaves"]
+
+_TREES = ("params", "err")          # a train state's parameter-shaped trees
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:
@@ -30,11 +37,11 @@ def to_tensor(a, device="cuda") -> torch.Tensor:
     bytes (bf16 arrays by int16 view)."""
     if isinstance(a, torch.Tensor):
         return a.to(device, copy=True)
-    a = np.ascontiguousarray(a)
+    a = np.array(a, order="C")          # a copy; keeps a 0-d array 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(
+        return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _is_packed(node) -> bool:
@@ -107,16 +114,71 @@ def flat_leaves(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def _fill(flat: dict, node, prefix: str = ""):
+    """``node`` (a tree in the reference's layout) with each leaf replaced
+    by ``flat``'s value at its ``flat_leaves`` path."""
+    if _is_packed(node):
+        return {**node, "streams": {s: flat[f"{prefix}/.{s}"]
+                                    for s in node["streams"]}}
+    if isinstance(node, dict):
+        return {k: _fill(flat, v, f"{prefix}/{k}" if prefix else k)
+                for k, v in node.items()}
+    return flat[prefix]
+
+
 def from_flat_leaves(flat: dict, template: dict, cfg,
                      device="cuda") -> dict:
     """{leaf path: array} (``flat_leaves`` paths of ``template``, a tree in
     the reference's layout) -> the port's parameter dict on ``device``."""
-    def fill(node, prefix):
-        if _is_packed(node):
-            return {**node, "streams": {s: flat[f"{prefix}/.{s}"]
-                                        for s in node["streams"]}}
-        if isinstance(node, dict):
-            return {k: fill(v, f"{prefix}/{k}" if prefix else k)
-                    for k, v in node.items()}
-        return flat[prefix]
-    return from_jax_tree(fill(template, ""), cfg, device)
+    return from_jax_tree(_fill(flat, template), cfg, device)
+
+
+def from_jax_train_state(state: dict, cfg, device="cuda") -> dict:
+    """Reference train state (numpy leaves, layers stacked):
+    ``{"params", "opt": {"m", "v", "step"}[, "err"]}`` -> the port's on
+    ``device``."""
+    out = {k: from_jax_tree(state[k], cfg, device) for k in _TREES
+           if k in state}
+    opt = state["opt"]
+    out["opt"] = {"m": from_jax_tree(opt["m"], cfg, device),
+                  "v": from_jax_tree(opt["v"], cfg, device),
+                  "step": to_tensor(opt["step"], device)}
+    return out
+
+
+def to_jax_train_state(state: dict) -> dict:
+    """The port's train state -> the reference's layout (tensors, layers
+    stacked on axis 0; inverse of ``from_jax_train_state``)."""
+    out = {k: stack_layers(state[k]) for k in _TREES if k in state}
+    opt = state["opt"]
+    out["opt"] = {"m": stack_layers(opt["m"]), "v": stack_layers(opt["v"]),
+                  "step": opt["step"]}
+    return out
+
+
+def _move(node, device):
+    """A copy of a tree of dicts and lists of tensors on ``device`` (fresh
+    tensors, also where a leaf is there already)."""
+    if isinstance(node, dict):
+        return {k: _move(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_move(v, device) for v in node]
+    return node.detach().to(device, copy=True)
+
+
+def train_state_leaves(state: dict, device="cpu") -> dict:
+    """{checkpoint leaf path: tensor on ``device``} of the port's train
+    state, in the reference's paths (``flat_leaves`` of
+    ``to_jax_train_state``). Each leaf is moved to ``device`` before the
+    layers are stacked, so a state on the card is stacked on the host
+    ("cpu"), or not at all ("meta": a restore template)."""
+    return flat_leaves(to_jax_train_state(_move(state, device)))
+
+
+def from_train_state_leaves(flat: dict, template: dict, cfg,
+                            device="cuda") -> dict:
+    """{leaf path: array or tensor} (the ``train_state_leaves`` paths of
+    the train state ``template``, whose values are not read) -> the port's
+    train state on ``device``."""
+    tree = to_jax_train_state(_move(template, "meta"))
+    return from_jax_train_state(_fill(flat, tree), cfg, device)

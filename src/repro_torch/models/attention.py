@@ -26,6 +26,15 @@ every position's result is bit-identical to sequential decode, also
 where a window is narrower than the chunk (the ring's overwrite order is
 decode's). Scores and the probability-weighted sum run in f32 on
 bf16-rounded operands, as the reference does.
+
+``attention_forward`` is the full-sequence attention of training (and of
+the reference's prefill): QKV for every position, then
+``_chunked_attention``, the reference's flash-style streaming attention --
+q tiles of ``Q_TILE`` positions, each against KV chunks of ``KV_CHUNK``
+with a running (max, normaliser, accumulator) -- in the reference's order
+of operations, so the chunking fixes the summation order as there. It is
+plain PyTorch, differentiable by autograd (the reference's has no custom
+gradient either), and uses no cache.
 """
 from __future__ import annotations
 
@@ -33,12 +42,19 @@ import torch
 
 from .kvquant import kv_cache_spec, kv_decode, kv_encode, kv_page_write
 from .layers import apply_rope, rms_norm, softcap
+from .numerics import einsum_f32acc
 from .quant import init_linear, quantized_matmul
 
 NEG_INF = -2.0e38
+# the reference's defaults (REPRO_ATTN_KV_CHUNK, REPRO_ATTN_Q_TILE): the
+# chunking fixes the summation order, so the port keeps them
+KV_CHUNK = 512
+Q_TILE = 1024
+GLOBAL_WINDOW = 2 ** 30     # the masks' window of a global layer
 
 __all__ = [
-    "init_attention", "attention_decode", "attention_prefill", "init_cache",
+    "init_attention", "attention_forward", "attention_decode",
+    "attention_prefill", "init_cache", "KV_CHUNK", "Q_TILE",
 ]
 
 
@@ -64,9 +80,10 @@ def init_attention(gen: torch.Generator, cfg, device="cuda") -> dict:
 def _project_qkv(p, x, cfg, positions, quant):
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = quantized_matmul(x, p["wq"], quant)
-    k = quantized_matmul(x, p["wk"], quant)
-    v = quantized_matmul(x, p["wv"], quant)
+    fmt = cfg.quant_format
+    q = quantized_matmul(x, p["wq"], quant, fmt)
+    k = quantized_matmul(x, p["wk"], quant, fmt)
+    v = quantized_matmul(x, p["wv"], quant, fmt)
     if cfg.qkv_bias:                       # bf16 + bf16, one rounding
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, nh, hd)
@@ -78,6 +95,103 @@ def _project_qkv(p, x, cfg, positions, quant):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, T, nkv, hd) -> (B, T, nkv * n_rep, hd), each KV head repeated
+    for its ``n_rep`` query heads."""
+    if n_rep == 1:
+        return x
+    b, t, nkv, hd = x.shape
+    return x[:, :, :, None, :].expand(b, t, nkv, n_rep, hd).reshape(
+        b, t, nkv * n_rep, hd)
+
+
+def _pad_chunks(kv: list, pos: torch.Tensor, chunk: int):
+    """Pad the KV axis (1) of each of ``kv`` and of ``pos`` (B, T) to a
+    multiple of ``chunk``: zeros, and position -1 (masked)."""
+    pad = (-kv[0].shape[1]) % chunk
+    if pad == 0:
+        return kv, pos
+    kv = [torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad)) for a in kv]
+    pos = torch.nn.functional.pad(pos, (0, pad), value=-1)
+    return kv, pos
+
+
+def _chunked_attention(q, k, v, pos_q, pos_k, cfg, window: int,
+                       chunk: int = KV_CHUNK, q_tile: int = Q_TILE):
+    """Flash-style streaming attention, q-tiled (the reference's): when
+    ``S > q_tile`` and ``q_tile`` divides S, each tile of ``q_tile`` query
+    positions runs ``_chunked_attention_inner`` on its own, else all S at
+    once. q (B, S, nh, hd); k, v (B, T, nkv, hd); pos_q (B, S), pos_k
+    (B, T) absolute positions (-1 = an invalid key); ``window`` the
+    layer's (GLOBAL_WINDOW for a global layer). Returns (B, S, nh, hd)
+    f32."""
+    s = q.shape[1]
+    if s > q_tile and s % q_tile == 0:
+        return torch.cat([
+            _chunked_attention_inner(q[:, i:i + q_tile], k, v,
+                                     pos_q[:, i:i + q_tile], pos_k, cfg,
+                                     window, chunk)
+            for i in range(0, s, q_tile)], dim=1)
+    return _chunked_attention_inner(q, k, v, pos_q, pos_k, cfg, window,
+                                    chunk)
+
+
+def _chunked_attention_inner(q, k, v, pos_q, pos_k, cfg, window: int,
+                             chunk: int = KV_CHUNK):
+    """Every query of q against the keys in chunks of ``min(chunk, T)``
+    (the last padded, its padding masked), carrying the running max
+    ``m``, normaliser ``l`` and accumulator: scores ``q.k * hd**-0.5`` of
+    bf16 operands in f32, soft-capped by ``cfg.attn_softcap``; a key
+    counts when its position is >= 0, at most the query's and less than
+    ``window`` back. Returns ``acc / max(l, 1e-30)`` as (B, S, nh, hd)."""
+    b, s, nh, hd = q.shape
+    n_rep = nh // k.shape[2]
+    c = min(chunk, k.shape[1])
+    (k, v), pos_k = _pad_chunks([k, v], pos_k, c)
+    qf = q.to(torch.bfloat16)
+    scale = hd ** -0.5
+    m = torch.full((b, nh, s), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, nh, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, nh, s, hd), dtype=torch.float32, device=q.device)
+    for j in range(0, k.shape[1], c):
+        kch = _repeat_kv(k[:, j:j + c], n_rep)
+        vch = _repeat_kv(v[:, j:j + c], n_rep)
+        pch = pos_k[:, j:j + c]                                # (B, c)
+        sc = einsum_f32acc("bsnd,bcnd->bnsc", qf,
+                           kch.to(torch.bfloat16)) * scale
+        sc = softcap(sc, cfg.attn_softcap)
+        valid = (pch >= 0)[:, None, :] & \
+            (pos_q[:, :, None] >= pch[:, None, :]) & \
+            (pos_q[:, :, None] - pch[:, None, :] < window)    # (B, S, c)
+        validb = valid[:, None, :, :]                          # (B,1,S,c)
+        sc = torch.where(validb, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.where(validb, torch.exp(sc - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = einsum_f32acc("bnsc,bcnd->bnsd", p.to(torch.bfloat16),
+                           vch.to(torch.bfloat16))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2)                                 # (B,S,nh,hd)
+
+
+def attention_forward(p: dict, x: torch.Tensor, cfg,
+                      positions: torch.Tensor, quant: str = "none",
+                      window: int = 0):
+    """Full-sequence attention (training): x (B, S, d), ``positions``
+    (B, S), ``window`` the layer's (0 = global). Returns (out (B, S, d),
+    (k, v)) with k, v (B, S, nkv, hd) after qk-norm and rope."""
+    q, k, v = _project_qkv(p, x, cfg, positions, quant)
+    out = _chunked_attention(q, k, v, positions, positions, cfg,
+                             window or GLOBAL_WINDOW)
+    b, s = x.shape[:2]
+    out = out.reshape(b, s, -1).to(x.dtype)
+    return quantized_matmul(out, p["wo"], quant, cfg.quant_format), (k, v)
 
 
 def _cache_rows(k: torch.Tensor, v: torch.Tensor, cfg) -> dict:
@@ -146,7 +260,7 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
     q, k_new, v_new = _project_qkv(p, x, cfg, index[:, None], quant)
     ctx = _attend_one(q, _cache_rows(k_new, v_new, cfg), x.dtype, cfg, cache,
                       index, window=window)
-    return quantized_matmul(ctx, p["wo"], quant)
+    return quantized_matmul(ctx, p["wo"], quant, cfg.quant_format)
 
 
 def attention_prefill(p: dict, x: torch.Tensor, cfg, cache: dict,
@@ -170,7 +284,8 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg, cache: dict,
     ctxs = [_attend_one(q[:, i:i + 1], at(rows, i), x.dtype, cfg, cache,
                         index + i, valid=i < lengths, window=window)
             for i in range(t)]
-    return quantized_matmul(torch.cat(ctxs, dim=1), p["wo"], quant)
+    return quantized_matmul(torch.cat(ctxs, dim=1), p["wo"], quant,
+                            cfg.quant_format)
 
 
 def init_cache(cfg, batch: int, max_len: int, window: int = 0,

@@ -81,12 +81,13 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, device="cuda") -> dict:
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor, quant: str = "none") -> torch.Tensor:
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
-    g = quantized_matmul(x, p["gate"], quant)
-    u = quantized_matmul(x, p["up"], quant)
+def mlp_apply(p: dict, x: torch.Tensor, quant: str = "none",
+              fmt: str = "m2xfp") -> torch.Tensor:
+    """SwiGLU: down(silu(gate(x)) * up(x)); ``fmt`` is ``qat``'s codec."""
+    g = quantized_matmul(x, p["gate"], quant, fmt)
+    u = quantized_matmul(x, p["up"], quant, fmt)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
-    return quantized_matmul(h, p["down"], quant)
+    return quantized_matmul(h, p["down"], quant, fmt)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,

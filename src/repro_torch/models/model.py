@@ -1,4 +1,4 @@
-"""Decoder LM of the serve path (port of the attention families of
+"""Decoder LM of the serve and train paths (port of the attention families of
 repro.models.model -- dense, moe, audio and vlm -- with the attention
 variants: QKV bias, qk-norm, tied embeddings, sliding windows, local/global
 layers and both soft-caps).
@@ -17,14 +17,19 @@ port loops over the list, so each layer can be packed and freed on its own
 (``repro_torch.convert`` maps one layout to the other).
 
 Entry points:
+  forward(...)        logits of whole sequences (training), no caches
+  loss_fn(...)        next-token cross-entropy of ``forward``'s logits
   decode_step(...)    one token per slot against the per-slot caches
   prefill_chunk(...)  up to T tokens per slot in one launch, bit-identical
                       per position to feeding them through decode_step
-Both update the caches in place and return f32 logits.
+The last two update the caches in place; all return f32 logits.
+``forward`` and ``loss_fn`` are differentiable (autograd) under ``quant``
+``none`` and ``qat``; under ``serve`` they run the packed GEMMs.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.codecs import get_codec, packed_codecs
 from . import attention as attn
@@ -35,9 +40,9 @@ from .numerics import dot_f32acc
 from .quant import pack_serving_weight
 
 __all__ = [
-    "init_params", "init_head", "init_layer", "init_caches", "decode_step",
-    "prefill_chunk", "pack_layer_for_serving", "pack_params_for_serving",
-    "layer_windows",
+    "init_params", "init_head", "init_layer", "init_caches", "forward",
+    "loss_fn", "decode_step", "prefill_chunk", "pack_layer_for_serving",
+    "pack_params_for_serving", "layer_windows",
 ]
 
 _PACK_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
@@ -126,25 +131,103 @@ def init_caches(cfg, batch: int, max_len: int, device="cuda") -> dict:
 # Decode / chunked prefill
 # ---------------------------------------------------------------------------
 
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]`` whose gradient is the one-hot product
+    ``onehot(tokens)^T @ g`` (``dot_f32acc``: exact products, summed in
+    f32 or wider, rounded once to the table's dtype), so repeated tokens
+    sum in a fixed order; an indexing backward would sum them with atomics
+    on the card, in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.vocab, ctx.dtype = table.shape[0], table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        onehot = torch.nn.functional.one_hot(tokens.reshape(-1).long(),
+                                             ctx.vocab).to(g2.dtype)
+        return dot_f32acc(onehot.T, g2).to(ctx.dtype), None
+
+
 def _embed_in(params, cfg, batch) -> torch.Tensor:
     """batch {"embeds": (B, T, d) bf16} under ``input_mode="embeddings"``,
     else {"tokens": (B, T)} looked up in ``embed``."""
     if cfg.input_mode == "embeddings":
         return batch["embeds"]
-    return params["embed"][batch["tokens"]]
+    table = params["embed"]
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbedLookup.apply(table, batch["tokens"])
+    return table[batch["tokens"]]
 
 
 def _ffn(lp, h, cfg):
     x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
     if cfg.is_moe:
         return h + moe_apply(lp["ffn"], x, cfg, cfg.quant)
-    return h + mlp_apply(lp["ffn"], x, cfg.quant)
+    return h + mlp_apply(lp["ffn"], x, cfg.quant, cfg.quant_format)
 
 
 def _logits(params, cfg, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return softcap(dot_f32acc(h, head), cfg.final_softcap)
+
+
+def _attn_block_forward(lp, h, cfg, positions, window: int):
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    out, kv = attn.attention_forward(lp["attn"], x, cfg, positions,
+                                     cfg.quant, window)
+    return _ffn(lp, h + out, cfg), kv
+
+
+def forward(params: dict, cfg, batch: dict, collect_cache: bool = False):
+    """Logits of whole sequences (training; the reference's ``forward``
+    for the attention families). batch: {"tokens": (B, S)} or
+    {"embeds": (B, S, d)}, optionally "positions" (B, S) (else 0..S-1).
+    Returns f32 logits (B, S, V); with ``collect_cache`` also each layer's
+    (k, v), (B, S, nkv, hd). Under ``cfg.remat`` each layer's activations
+    are recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's default policy: only the layers' inputs are kept)."""
+    check_supported(cfg)
+    h = _embed_in(params, cfg, batch)
+    b, s = h.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=h.device).expand(b, s)
+    kvs = []
+    for lp, window in zip(params["layers"], layer_windows(cfg)):
+        if cfg.remat:
+            h, kv = torch.utils.checkpoint.checkpoint(
+                _attn_block_forward, lp, h, cfg, positions, window,
+                use_reentrant=False)
+        else:
+            h, kv = _attn_block_forward(lp, h, cfg, positions, window)
+        if collect_cache:
+            kvs.append(kv)
+    logits = _logits(params, cfg, h)
+    return (logits, kvs) if collect_cache else logits
+
+
+def loss_fn(params: dict, cfg, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy of ``forward`` (labels ``batch["labels"]``,
+    negatives ignored), as the reference writes it: logsumexp minus a
+    masked one-hot reduce over the vocabulary (not a gather), summed over
+    the valid positions and divided by their count (at least 1)."""
+    logits = forward(params, cfg, batch)
+    labels = batch["labels"]
+    valid = labels >= 0
+    safe = labels.clamp_min(0)
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    vocab = torch.arange(lf.shape[-1], dtype=labels.dtype,
+                         device=labels.device)
+    picked = torch.where(safe[..., None] == vocab, lf, 0.0).sum(dim=-1)
+    nll = lse - picked
+    return (nll * valid).sum() / valid.sum().clamp_min(1)
 
 
 def decode_step(params: dict, cfg, batch: dict, caches: dict,

@@ -14,6 +14,10 @@ path's quantization modes:
                   per expert (no kernel, as in the reference);
   serve, dense  : an (E, K, N) bf16 weight that was not packed (E not a
                   multiple of 32, the reference's rule), and ``none``: the
+                  plain batched product;
+  qat           : each expert's weight fake-quantized along K and the
+                  activations along the last axis in ``cfg.quant_format``,
+                  each through the straight-through estimator, then the
                   plain batched product.
 
 Every product accumulates in f32 or wider (``numerics.einsum_f32acc``). The
@@ -23,6 +27,10 @@ positions, drops) and the combine weights have the same bits on the card
 as on the CPU; they differ from XLA's f32 ones by its last-ulp roundings.
 Dispatch and combine are the reference's one-hot contractions, so a token's
 -0.0 enters its expert as +0.0 and a NaN spreads over its group as there.
+
+Under autograd the top-k choice, the queue positions and the capacity carry
+no gradient (indices and one-hots); the renormalised router probabilities
+in the combine do, down to the router's weight.
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ import torch
 
 from .numerics import einsum_f32acc
 from .quant import PackedTensor, decode_serving_weight, fake_quant_act, \
-    init_linear
+    fake_quant_ste, fake_quant_weight, init_linear
 
 __all__ = ["init_moe", "moe_apply", "route"]
 
@@ -53,16 +61,27 @@ def _capacity(group: int, topk: int, n_experts: int, factor: float) -> int:
     return max(8, (c + 3) // 4 * 4)
 
 
-def _expert_matmul(xe: torch.Tensor, w, quant: str) -> torch.Tensor:
+def _fake_quant_experts(w: torch.Tensor, fmt: str) -> torch.Tensor:
+    """Each expert's (K, N) weight of (E, K, N) fake-quantized along K: as
+    (K, E, N) its groups run along K for every (expert, column)."""
+    return fake_quant_weight(w.permute(1, 0, 2), fmt).permute(1, 0, 2)
+
+
+def _expert_matmul(xe: torch.Tensor, w, quant: str,
+                   fmt: str = "m2xfp") -> torch.Tensor:
     """(ng, E, C, K) x per-expert weights -> (ng, E, C, N) in xe's dtype.
     Under ``serve`` a PackedTensor (K, E, N) is decoded and xe fake-quantized
-    with its codec; a dense (E, K, N) weight multiplies as it is."""
+    with its codec; a dense (E, K, N) weight multiplies as it is, after
+    ``qat``'s fake-quant in ``fmt``."""
     if quant == "serve" and isinstance(w, PackedTensor):
         wd = decode_serving_weight(w)                      # (K, E, N)
         xq = fake_quant_act(xe.to(torch.float32), w.codec).to(wd.dtype)
         return einsum_f32acc("geck,kef->gecf", xq, wd).to(xe.dtype)
-    if quant not in ("none", "serve"):
-        raise NotImplementedError(f"quant={quant!r} is not ported yet")
+    if quant == "qat":
+        w = fake_quant_ste(w, lambda t: _fake_quant_experts(t, fmt))
+        xe = fake_quant_ste(xe, lambda t: fake_quant_act(t, fmt))
+    elif quant not in ("none", "serve"):
+        raise ValueError(f"unknown quant mode {quant!r}")
     return einsum_f32acc("geck,ekf->gecf", xe, w).to(xe.dtype)
 
 
@@ -117,9 +136,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg,
 
     xe = einsum_f32acc("ngec,ngd->necd", dispatch,
                        xt.to(torch.bfloat16)).to(x.dtype)
-    h_g = _expert_matmul(xe, p["gate"], quant)
-    h_u = _expert_matmul(xe, p["up"], quant)
+    fmt = cfg.quant_format
+    h_g = _expert_matmul(xe, p["gate"], quant, fmt)
+    h_u = _expert_matmul(xe, p["up"], quant, fmt)
     h = torch.nn.functional.silu(h_g.to(torch.float32)).to(x.dtype) * h_u
-    ye = _expert_matmul(h, p["down"], quant)                # (ng, E, C, d)
+    ye = _expert_matmul(h, p["down"], quant, fmt)           # (ng, E, C, d)
     y = einsum_f32acc("ngec,necd->ngd", combine.to(x.dtype), ye).to(x.dtype)
     return y.reshape(b, s, d)

@@ -2,6 +2,10 @@
 
 Modes (``ModelConfig.quant``):
   none  : plain bf16 GEMM with f32 accumulation.
+  qat   : fake-quant with a straight-through estimator on the weight
+          (groups along K) and the activations (along the last axis) in
+          codec ``fmt``, then the plain GEMM: W4A4 simulated inside the
+          training graph, the gradient that of the identity.
   serve : the weight is a packed :class:`PackedTensor` resident on the
           device at its codec's bits per element; the activations are
           fake-quantized online with the same codec and rounded to bf16.
@@ -11,8 +15,8 @@ Modes (``ModelConfig.quant``):
           in its exact dtype and multiplies (``dot_f32acc``), as the
           reference's decode mirror does.
 
-Training's ``qat`` mode is not ported yet. Every format decision goes
-through the codec registry (``repro_torch.core.codecs``):
+Every format decision goes through the codec registry
+(``repro_torch.core.codecs``):
 ``fake_quant_weight`` / ``fake_quant_act`` look a codec up by name.
 """
 from __future__ import annotations
@@ -26,10 +30,17 @@ from repro_torch.kernels.ops import packed_matmul
 from .numerics import dot_f32acc
 
 __all__ = [
-    "fake_quant_weight", "fake_quant_act", "init_linear",
+    "fake_quant_weight", "fake_quant_act", "ste", "init_linear",
     "pack_serving_weight", "decode_serving_weight", "quantized_matmul",
     "PackedTensor",
 ]
+
+
+def ste(x: torch.Tensor, qx: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: the value ``x + (qx - x)`` (in bf16 it
+    need not equal ``qx``; the reference's forward sees this sum), the
+    gradient that of the identity in ``x``."""
+    return x + (qx - x).detach()
 
 
 def fake_quant_weight(w: torch.Tensor, fmt: str = "m2xfp") -> torch.Tensor:
@@ -120,13 +131,26 @@ def _serve_matmul(x: torch.Tensor, w: PackedTensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
 
 
-def quantized_matmul(x: torch.Tensor, w, quant: str) -> torch.Tensor:
+def fake_quant_ste(x: torch.Tensor, quantize) -> torch.Tensor:
+    """``ste(x, quantize(x as f32) cast back to x's dtype)``; the
+    fake-quant itself runs outside autograd (its gradient is cut)."""
+    with torch.no_grad():
+        qx = quantize(x.detach().to(torch.float32)).to(x.dtype)
+    return ste(x, qx)
+
+
+def quantized_matmul(x: torch.Tensor, w, quant: str,
+                     fmt: str = "m2xfp") -> torch.Tensor:
     """x (..., K) @ w (K, N) under the configured quantization mode. ``w``
-    is a dense tensor for ``none`` and a PackedTensor for ``serve`` (a
-    dense weight under ``serve`` -- one too narrow to pack -- runs the
-    dense GEMM, as in the reference)."""
+    is a dense tensor for ``none`` and ``qat`` and a PackedTensor for
+    ``serve`` (a dense weight under ``serve`` -- one too narrow to pack --
+    runs the dense GEMM, as in the reference). ``fmt`` is the codec of
+    ``qat``'s fake-quant; a packed weight carries its own."""
     if quant == "serve" and isinstance(w, PackedTensor):
         return _serve_matmul(x, w)
-    if quant not in ("none", "serve"):
-        raise NotImplementedError(f"quant={quant!r} is not ported yet")
+    if quant == "qat":
+        w = fake_quant_ste(w, lambda t: fake_quant_weight(t, fmt))
+        x = fake_quant_ste(x, lambda t: fake_quant_act(t, fmt))
+    elif quant not in ("none", "serve"):
+        raise ValueError(f"unknown quant mode {quant!r}")
     return dot_f32acc(x, w).to(x.dtype)

@@ -8,9 +8,13 @@ quarantine with the survivors bit-identical), and the attention variants
 (soft-caps and the tied head against the CPU, the guard on rings of two
 widths, chunked prefill on gemma2-9b and qwen3-8b), and the model families
 of slice 11 (the MoE engine and its routing against the CPU, embedding
-input's chunked prefill at full width). Each decides inside
-its body whether there is a CUDA device and skips without one. This file
-imports no JAX, so it also runs where only the port is installed:
+input's chunked prefill at full width), and training (slice 12: the
+products' backward and a full-width train step against the CPU, the card's
+train step deterministic and resumed bit for bit from a checkpoint,
+``loss_fn`` under serve through the m2xfp kernel at M = 4096). Each
+decides inside its body whether there is a CUDA device and skips without
+one. This file imports no JAX, so it also runs where only the port is
+installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -1162,3 +1166,178 @@ def test_embeddings_prefill_chunk_bitexact_vs_decode_full_width(monkeypatch):
                                    seq_caches["layers"])):
         for name in a:
             assert torch.equal(a[name], b[name]), (i, name)
+
+
+# ---------------------------------------------------------------------------
+# Training (slice 12)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_cuda_product_backward_equals_cpu():
+    """``dot_f32acc`` and ``einsum_f32acc`` differentiate on the card (the
+    forward's bf16 tensor-core product has a backward of IEEE f32
+    products) and give the CPU's gradients (float64 there) within f32
+    rounding of |g| @ |operand|, each cast to its operand's dtype."""
+    _need_cuda()
+    from repro_torch.models.numerics import dot_f32acc, einsum_f32acc
+    gen = torch.Generator().manual_seed(3)
+    cases = [
+        ("dot", lambda a, b: dot_f32acc(a, b), (5, 7, 96), (96, 40)),
+        ("einsum", lambda a, b: einsum_f32acc("bsnd,bcnd->bnsc", a, b),
+         (2, 9, 4, 32), (2, 11, 4, 32)),
+    ]
+    for name, fn, sa, sb in cases:
+        for wdt in (torch.bfloat16, torch.float32):
+            a0 = torch.randn(sa, generator=gen).to(torch.bfloat16)
+            b0 = torch.randn(sb, generator=gen).to(wdt)
+            g0 = torch.randn(fn(a0, b0).shape, generator=gen)
+            grads = {}
+            for dev in ("cpu", "cuda"):
+                a = a0.to(dev, copy=True).requires_grad_()
+                b = b0.to(dev, copy=True).requires_grad_()
+                out = fn(a, b)
+                assert out.dtype == torch.float32
+                out.backward(g0.to(dev))
+                assert a.grad.dtype == a.dtype and b.grad.dtype == b.dtype
+                grads[dev] = (a.grad.cpu().float(), b.grad.cpu().float())
+            for cpu_g, card_g in zip(grads["cpu"], grads["cuda"]):
+                # one bf16 (or f32) rounding of the gradient either side,
+                # after f32 sums of up to ~100 terms
+                tol = 2.0 ** -7 * cpu_g.abs().max()
+                assert float((cpu_g - card_g).abs().max()) <= tol, \
+                    (name, wdt)
+
+
+def _train_cfg(quant="none", layers=1):
+    from repro_torch.configs import get_config
+    return get_config("paper-llama2-7b", n_layers=layers, quant=quant)
+
+
+def _train_batch(cfg, batch, seq, step=0, device="cuda"):
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(batch=batch, seq=seq,
+                                  vocab=cfg.vocab_size, seed=0))
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in data.batch_at(step).items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["none", "qat"])
+def test_cuda_train_step_matches_cpu_full_width(quant):
+    """One train step's loss and gradients at full width (paper-llama2-7b,
+    1 layer, B = 1, S = 64) on the card against the same step on the CPU,
+    within repro_torch.testing.train's tolerances."""
+    _need_cuda()
+    from repro_torch.testing.train import step_card_vs_cpu
+    from repro_torch.train import make_train_state
+    cfg = _train_cfg(quant)
+    state = make_train_state(torch.Generator("cuda").manual_seed(0), cfg,
+                             device="cuda")
+    res = step_card_vs_cpu(cfg, state["params"], _train_batch(cfg, 1, 64))
+    assert res["within"], str(res)
+
+
+def _run_steps(state, cfg, steps, start=0, batch=1, seq=64, mgr=None,
+               save_at=None):
+    from repro_torch.train import AdamWConfig, make_train_step
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                               total_steps=8))
+    for i in range(start, steps):
+        state, _ = step_fn(state, _train_batch(cfg, batch, seq, i))
+        if mgr is not None and i + 1 == save_at:
+            mgr.maybe_save(save_at, state, extra={"data_step": save_at},
+                           force=True)
+    if mgr is not None:
+        mgr.wait()
+    return state
+
+
+def _assert_same_state(a, b):
+    from repro_torch.convert import train_state_leaves
+    la, lb = train_state_leaves(a), train_state_leaves(b)
+    assert sorted(la) == sorted(lb)
+    for k in la:
+        assert torch.equal(la[k], lb[k]), k
+
+
+@pytest.mark.gpu
+def test_cuda_train_steps_deterministic():
+    """Two runs of three train steps from the same state on the card give
+    the same bits (the embedding's backward is a one-hot product, not an
+    atomic scatter; the products are cuBLAS's, deterministic on one
+    stream), at full width, 2 layers, B = 2, S = 256."""
+    _need_cuda()
+    from repro_torch.train import make_train_state
+    cfg = _train_cfg(layers=2)
+    runs = []
+    for _ in range(2):
+        state = make_train_state(torch.Generator("cuda").manual_seed(0),
+                                 cfg, device="cuda")
+        runs.append(_run_steps(state, cfg, 3, batch=2, seq=256))
+        del state
+    _assert_same_state(*runs)
+
+
+@pytest.mark.gpu
+def test_cuda_resume_from_checkpoint_bitexact(tmp_path):
+    """A CheckpointManager checkpoint written after 2 of 4 steps on the
+    card, resumed, ends on the uninterrupted run's bits (full width, 1
+    layer, B = 1, S = 64)."""
+    _need_cuda()
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train import make_train_state
+    cfg = _train_cfg()
+
+    def fresh():
+        return make_train_state(torch.Generator("cuda").manual_seed(0), cfg,
+                                device="cuda")
+    full = _run_steps(fresh(), cfg, 4)
+    _run_steps(fresh(), cfg, 2, mgr=CheckpointManager(str(tmp_path)),
+               save_at=2)
+    state, extra, step = CheckpointManager(str(tmp_path)).resume(
+        full, cfg, "cuda")
+    assert (step, extra) == (2, {"data_step": 2})
+    _assert_same_state(_run_steps(state, cfg, 4, start=2), full)
+
+
+@pytest.mark.gpu
+def test_cuda_serve_loss_through_kernel_at_m4096(monkeypatch):
+    """``loss_fn`` under serve of a packed full-width layer at 2 x 2048
+    tokens: every projection through the m2xfp kernel at M = 4096 (7
+    launches), its loss within 1e-4 (relative) of the same call with the
+    plain GEMM in the kernel's place; and the kernel at M = 4096 on the
+    first projection's real operand (the normed, fake-quantized embeddings)
+    within sqrt(K) * 2^-24 * (|x| @ |W|) of its plain version."""
+    _need_cuda()
+    import dataclasses
+
+    from repro_torch.core import codecs
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import loss_fn
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = _train_cfg("serve")
+    params = init_packed_params(torch.Generator("cuda").manual_seed(0),
+                                cfg, "cuda")
+    batch = _train_batch(cfg, 2, 2048)
+    before = M2XFP_KERNEL.launches
+    with torch.no_grad():
+        loss = float(loss_fn(params, cfg, batch))
+    assert M2XFP_KERNEL.launches - before == 7
+    plain = dataclasses.replace(codecs.get_codec("m2xfp"),
+                                kernel=ref.m2xfp_matmul_ref)
+    monkeypatch.setitem(codecs._REGISTRY, "m2xfp", plain)
+    with torch.no_grad():
+        loss_plain = float(loss_fn(params, cfg, batch))
+    assert M2XFP_KERNEL.launches - before == 7
+    assert abs(loss - loss_plain) <= 1e-4 * abs(loss_plain), \
+        (loss, loss_plain)
+    lp = params["layers"][0]
+    h = params["embed"][batch["tokens"]].reshape(-1, cfg.d_model)
+    x = quantize_act_m2xfp(rms_norm(h, lp["attn_norm"]).float()).to(
+        torch.bfloat16)
+    wp = lp["attn"]["wq"].streams
+    got, want = ops.m2xfp_matmul(x, wp), ref.m2xfp_matmul_ref(x, wp)
+    bound = cfg.d_model ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(
+        x.abs(), ref.decode_w_sgem_ref(wp).abs())
+    assert x.shape[0] == 4096
+    assert bool(((got - want).abs() <= bound).all())

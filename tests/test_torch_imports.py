@@ -1,5 +1,5 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports JAX, the reference package ``repro`` or
+"""The port stands alone: nothing under ``src/repro_torch/``, nothing in
+``chip_smoke.py`` and nothing in ``examples/train_lm_torch.py`` imports JAX, the reference package ``repro`` or
 ``ml_dtypes`` (the card's machine has none of them; bf16 checkpoint leaves
 restore by bit view)."""
 import ast
@@ -10,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "examples" / "train_lm_torch.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -38,4 +38,6 @@ def test_every_port_module_is_scanned():
             "kernels/m2xfp_matmul.py", "kernels/flash_attention.py",
             "models/kvquant.py", "checkpoint/checkpoint.py",
             "serve/prequant.py", "serve/guard.py", "testing/faults.py",
-            "testing/__init__.py"} <= names
+            "testing/__init__.py", "data/pipeline.py",
+            "distributed/straggler.py", "train/optimizer.py",
+            "train/compression.py", "train/trainer.py"} <= names
