@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.codecs import PackedTensor
+from repro_torch.tree import tree_map
 
 __all__ = ["from_jax_tree", "to_tensor", "stack_layers", "flat_leaves",
            "from_flat_leaves", "from_jax_train_state", "to_jax_train_state",
@@ -159,11 +160,7 @@ def to_jax_train_state(state: dict) -> dict:
 def _move(node, device):
     """A copy of a tree of dicts and lists of tensors on ``device`` (fresh
     tensors, also where a leaf is there already)."""
-    if isinstance(node, dict):
-        return {k: _move(v, device) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_move(v, device) for v in node]
-    return node.detach().to(device, copy=True)
+    return tree_map(lambda t: t.detach().to(device, copy=True), node)
 
 
 def train_state_leaves(state: dict, device="cpu") -> dict:

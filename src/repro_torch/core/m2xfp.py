@@ -186,8 +186,10 @@ def quantize_act_m2xfp(x: torch.Tensor, group: int = GROUP,
 
 
 # rows per block of the weight fake-quant on the CPU: the search's dozen
-# passes over a block stay in the caches (4x faster on a 11008 x 4096
-# weight); each group is searched on its own, so the values are the same
+# passes over a block stay in the caches; each group is searched on its
+# own, so the values are the same. It keeps chip_smoke.py within its time:
+# the train phase's CPU step of one full-width qat layer took 73.0 s
+# without the blocks and 20.3 s with them (8 host cores beside an H100)
 _CPU_ROWS = 512
 
 

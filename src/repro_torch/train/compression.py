@@ -15,7 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.dtypes import div_const
-from .optimizer import tree_map
+from repro_torch.tree import tree_map
 
 __all__ = ["CompressionConfig", "init_error_feedback", "compress_decompress",
            "compressed_psum"]

@@ -6,7 +6,7 @@ Layout: parameters are kept in f32 ("master"); the forward pass casts
 matrix leaves to bf16 (``repro_torch.train.trainer.cast_for_compute``).
 The moments m and v are f32 and mirror the parameter tree. A tree here is
 a dict / list nesting of tensors (the port's parameter layout: per-layer
-dicts in a list under "layers"); ``tree_map`` and ``tree_leaves`` walk it.
+dicts in a list under "layers"), walked by ``repro_torch.tree``.
 
 Scalar arithmetic follows the reference's f32 rounding points: Python
 constants are rounded to f32 where they meet a tensor, the step is an f32
@@ -27,10 +27,11 @@ from typing import Callable
 import torch
 
 from repro_torch.core.dtypes import div_const
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = [
     "AdamWConfig", "adamw_init", "adamw_update", "clip_by_global_norm",
-    "warmup_cosine", "global_norm", "tree_map", "tree_leaves",
+    "warmup_cosine", "global_norm",
 ]
 
 
@@ -44,25 +45,6 @@ class AdamWConfig:
     clip_norm: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 10000
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (dicts and lists) and of the
-    trees of the same structure in ``rest``; returns the same structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v, *(r[i] for r in rest))
-                for i, v in enumerate(tree)]
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of ``tree`` in ``tree_map``'s order."""
-    out = []
-    tree_map(out.append, tree)
-    return out
 
 
 def _f32_of_f64(fn, x: torch.Tensor) -> torch.Tensor:

@@ -22,9 +22,9 @@ from typing import Optional
 import torch
 
 from repro_torch.models.model import init_params, loss_fn
+from repro_torch.tree import tree_leaves, tree_map
 from .compression import CompressionConfig, init_error_feedback
-from .optimizer import (AdamWConfig, adamw_init, adamw_update, tree_leaves,
-                        tree_map, warmup_cosine)
+from .optimizer import AdamWConfig, adamw_init, adamw_update, warmup_cosine
 
 __all__ = ["make_train_state", "make_train_step", "cast_for_compute"]
 

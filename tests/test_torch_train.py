@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.testing.train import GRAD_L2, GRAD_TOL, grad_agreement
 from test_torch_serve import _flatten, run_reference_child
 
 BASE = dict(name="sys", family="dense", n_layers=2, d_model=64, n_heads=4,
@@ -378,16 +379,17 @@ def leaves_of(tree) -> dict:
 
 def assert_grads_close(port: dict, ref: dict, label: str) -> None:
     """Every gradient leaf within GRAD_TOL of the reference's, and within
-    GRAD_L2 in L2 norm relative to the reference's."""
+    GRAD_L2 in L2 norm relative to the reference's (``grad_agreement``,
+    the card-vs-CPU check's own)."""
     assert sorted(port) == sorted(ref), label
     for k, a in ref.items():
-        p = port[k]
-        assert p.shape == a.shape and p.dtype == a.dtype, (label, k)
-        d = np.abs(p.astype(np.float64) - a)
-        tol = GRAD_TOL * (np.maximum(np.abs(a), np.abs(p)) + np.abs(a).max())
-        assert (d <= tol).all(), (label, k, float((d / tol).max()))
-        l2 = np.linalg.norm(d) / max(np.linalg.norm(a), 1e-30)
-        assert l2 <= GRAD_L2, (label, k, l2)
+        assert port[k].shape == a.shape and port[k].dtype == a.dtype, \
+            (label, k)
+    as_t = lambda t: {k: torch.from_numpy(np.array(v))  # noqa: E731
+                      for k, v in t.items()}
+    worst = grad_agreement(as_t(port), as_t(ref))
+    assert worst["elem_ratio"] <= 1 and worst["l2_ratio"] <= 1, \
+        (label, worst)
 
 
 # (a): f32 outputs of bf16 operands; the sums' order differs (float64 in
@@ -413,9 +415,8 @@ LOSS_TOL = 2e-4
 # products carry on. Measured: every element within 2.7 x 2^-7 of (its
 # magnitude + the leaf's largest), the L2 error within 0.019 of the leaf's
 # norm (qwen2-smoke, none). A gradient path missing or doubled moves a
-# leaf by its whole size.
-GRAD_TOL = 2.0 ** -5
-GRAD_L2 = 2.0 ** -5
+# leaf by its whole size. GRAD_TOL = GRAD_L2 = 2^-5
+# (repro_torch.testing.train, imported above).
 
 
 def test_synthetic_and_byte_batches_equal_reference(tmp_path):
@@ -874,3 +875,17 @@ def test_trained_model_serves_reference_tokens(reference, deployed):
     _, _, scfg, packed = deployed
     eng = ServeEngine(packed, scfg, guard=False, device="cpu", **ENGINE)
     assert eng.generate(PROMPTS, N_NEW) == reference["sys"]["tokens"]
+
+
+def test_cpu_weight_fake_quant_blocks_keep_values(monkeypatch):
+    """The CPU's m2xfp weight fake-quant, taken in blocks of
+    ``_CPU_ROWS`` rows (a last block short), gives the bits of the whole
+    weight at once: each group's search sees only its own 32 values."""
+    from repro_torch.core import m2xfp
+    w = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2 * m2xfp._CPU_ROWS + 37, 96)).astype(np.float32))
+    w[3, :32] = 0.0
+    w[5, 40] = -0.0
+    blocked = m2xfp.quantize_weight_m2xfp(w)
+    monkeypatch.setattr(m2xfp, "_CPU_ROWS", w.shape[0])
+    assert torch.equal(blocked, m2xfp.quantize_weight_m2xfp(w))
