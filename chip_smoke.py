@@ -77,6 +77,28 @@ printing JSON lines:
                  printed, not asserted (per-tensor activation scales depend
                  on which tokens share a launch), beside its decode step's
                  device time and its weights' bytes
+  6b. obs     -- telemetry (ROADMAP A7) on the first 2 of phase 3's layers
+                 (OBS_LAYERS) with an m2xfp-packed KV cache and the codecs
+                 phase's traffic, served with REPRO_OBS unset, set to
+                 "metrics,trace" and set to "1" (the script sets it and
+                 resets the registry between them), each with phase 3's
+                 assertions: the tokens identical across the three; the
+                 step and token counters equal to the engine's stats and
+                 every repro_guard_* metric to guard_summary(); under "1"
+                 the probes' elements equal to what the launches imply; a
+                 serve.kernel.dispatch span in a serve.phase.* span in a
+                 serve.step span (under "1" also in the trace.json dumped
+                 through REPRO_OBS_DIR into build/obs_dump); the engine's
+                 decode launch running as many CUDA kernels unset as with
+                 "metrics,trace", its wall and device ms in each mode; the
+                 probes' statistics of a captured layer-0 activation and of
+                 its first K encode equal to the CPU's; the weight sweep's
+                 seconds, per-layer clip rates and re-encode drift. Then the
+                 encoding design-space study (ROADMAP A10): the ten
+                 strategies and mxfp4_reference at subgroups 2, 4, 8 and 16
+                 on a seeded heavy-tailed (4096, 4096) f32 tensor: MSE
+                 relative to MXFP4's and EBW, the first 256 rows equal to
+                 the CPU's bit for bit
   7. variants -- the attention variants (ROADMAP A6a, A6b) served at full
                  width through the same engine, m2xfp weights from SEED
                  (the QKV biases and qk-norm weights seeded too, not
@@ -286,6 +308,31 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 2048, 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
 TRAIN_REPEAT_STEPS = 3
 TRAIN_CHECK = (1, 1, 64)
+# Obs phase (ROADMAP A7): the telemetry of the serve path on the first
+# OBS_LAYERS layers of phase 3's m2xfp weights (depth cut for the time
+# limit) with m2xfp KV pages (so the KV encode's probe runs) and the codecs
+# phase's traffic, served with REPRO_OBS set to each of OBS_MODES: unset,
+# the host-only pillars, every pillar. A serve-GEMM launch per layer reads
+# K = OBS_K_PER_LAYER columns of activations (the 7 projections), a KV
+# encode per layer 2 x 4096 (K and V: 32 heads x 128).
+OBS_LAYERS = 2
+OBS_MODES = (None, "metrics,trace", "1")
+OBS_K_PER_LAYER = 6 * 4096 + 11008
+OBS_KV_PER_LAYER = 2 * 4096
+# the guard's counters and the summary() entries they count
+GUARD_COUNTERS = {
+    "quarantines": "repro_guard_quarantine_total",
+    "scrubs": "repro_guard_scrub_total",
+    "retries": "repro_guard_step_retries_total",
+    "watchdog_trips": "repro_guard_watchdog_trips_total",
+    "expired": "repro_guard_expired_total",
+    "shed": "repro_guard_shed_total",
+    "degraded_steps": "repro_guard_degraded_steps_total",
+}
+# The encoding design-space study (ROADMAP A10, core/dse.py): every
+# strategy at each subgroup on a seeded heavy-tailed DSE_SHAPE f32 tensor
+# on the card, its first DSE_CHECK_ROWS rows against the CPU bit for bit.
+DSE_SHAPE, DSE_CHECK_ROWS, DSE_SUBGROUPS = (4096, 4096), 256, (2, 4, 8, 16)
 # moe_apply on the card against the CPU: the routing bit for bit (router
 # and softmax in float64 on both), the output within 2 bf16 ulps of the
 # larger magnitude plus 2^-7 of the largest |output| (the expert products
@@ -501,7 +548,8 @@ def kv_cache_bytes(caches) -> int:
 def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
                 layers=LAYERS, bf16_kv=None, params=None,
                 traffic=(REQUESTS, TOKENS, (16, 128)),
-                arch="paper-llama2-7b", max_len=MAX_LEN):
+                arch="paper-llama2-7b", max_len=MAX_LEN, after_run=None,
+                extra=None):
     """Serve ``traffic`` (requests, new tokens each, prompt lengths drawn
     by SEED from the range) through the port's engine (its guard on, as
     by default) on the first ``layers`` layers of ``arch`` with pages of
@@ -519,8 +567,10 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
     drops other tokens than a decode step's, as in the reference). ``bf16_kv``: the
     bf16-KV phase's result with the same weights, which a packed-KV phase
     prints beside its own. ``params``: weights an earlier phase packed from
-    SEED (else packed here). Returns (engine, launches of ``kern``, the
-    phase's result: tokens, peak and cache bytes)."""
+    SEED (else packed here). ``after_run``: called with the engine just
+    after its run, before the run with chunks of 1; ``extra``: fields added
+    to the printed line. Returns (engine, launches of ``kern``, the phase's
+    result: tokens, peak and cache bytes)."""
     from repro_torch.configs import get_config
     from repro_torch.core.codecs import get_codec
     from repro_torch.serve.engine import ServeEngine
@@ -575,6 +625,8 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
             len(o) != n_tokens for o in outs):
         raise AssertionError(f"{codec}: not every request completed")
     peak = torch.cuda.max_memory_allocated()
+    if after_run is not None:
+        after_run(eng)
     _, outs1 = run(1)
     same = sum(a == b for o, o1 in zip(outs, outs1) for a, b in zip(o, o1))
     batch_invariant = get_codec(codec).act_batch_invariant \
@@ -618,7 +670,7 @@ def serve_phase(codec: str, device, kern, kernels, kv_quant="none",
          kernel=kern.name if kern is not None else None, launches=launches,
          launches_expected=expected,
          token_agreement_vs_chunk1=same / (len(prompts) * n_tokens),
-         token_agreement_asserted=batch_invariant)
+         token_agreement_asserted=batch_invariant, **(extra or {}))
     return eng, launches, result
 
 
@@ -1151,6 +1203,330 @@ def codecs_phase(params, timer, gen, device, kern, kernels) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _metric_sum(name: str) -> float:
+    """The sum of a counter or gauge over its label sets (0 if unseen)."""
+    from repro_torch import obs
+    m = obs.registry().metrics().get(name)
+    return float(sum(m.samples().values())) if m is not None else 0.0
+
+
+def _contains(outer: dict, inner: dict) -> bool:
+    return (outer["tid"] == inner["tid"]
+            and outer["ts"] <= inner["ts"] + 1e-3
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+            + 1e-3)
+
+
+def _nested_dispatch(events: list) -> bool:
+    """A serve.kernel.dispatch span lies in a serve.phase.* span that lies
+    in a serve.step span."""
+    spans = [e for e in events if e.get("ph") == "X"]
+    steps = [e for e in spans if e["name"] == "serve.step"]
+    phases = [e for e in spans if e["name"].startswith("serve.phase.")]
+    return any(_contains(p, d) and any(_contains(s, p) for s in steps)
+               for d in spans if d["name"] == "serve.kernel.dispatch"
+               for p in phases)
+
+
+def obs_check(eng, mode) -> dict:
+    """The registry and tracer just after an engine's run under REPRO_OBS
+    ``mode``: nothing at all when unset; else the step and token counters
+    equal to the engine's stats, every repro_guard_* metric equal to
+    guard_summary() (the stream counters 0: nothing was validated), the
+    dispatch span nested in a phase in a step; under the health pillar the
+    probes' elements equal to what the launches imply. Raises on any
+    difference; returns what it read."""
+    from repro_torch import obs
+    from repro_torch.serve.guard import HEALTH_LEVEL
+    events = obs.tracer().events()
+    if mode is None:
+        if obs.registry().render_prometheus() or events:
+            raise AssertionError("REPRO_OBS unset recorded telemetry")
+        return {}
+    st, g = eng.stats, eng.guard_summary()
+    tokens = obs.counter("repro_serve_tokens_total")
+    got = dict(steps=_metric_sum("repro_serve_steps_total"),
+               generated=tokens.value(kind="generated"),
+               prefill=tokens.value(kind="prefill"),
+               **{k: _metric_sum(n) for k, n in GUARD_COUNTERS.items()},
+               health_state=_metric_sum("repro_guard_health_state"),
+               stream_invalid=_metric_sum("repro_guard_stream_invalid_total"),
+               stream_repair=_metric_sum("repro_guard_stream_repair_total"))
+    want = dict(steps=st.steps, generated=st.generated_tokens,
+                prefill=st.prefill_tokens,
+                **{k: g[k] for k in GUARD_COUNTERS},
+                health_state=HEALTH_LEVEL[g["state"]], stream_invalid=0,
+                stream_repair=0)
+    rows = N_SLOTS * st.decode_steps + N_SLOTS * CHUNK * st.prefill_steps
+    if mode == "1":
+        elems = obs.counter("repro_quant_elems_total")
+        got.update(gemm_elems=elems.value(site="serve_gemm", codec="m2xfp"),
+                   kv_elems=elems.value(site="kv_encode", codec="m2xfp"))
+        want.update(gemm_elems=rows * OBS_K_PER_LAYER * OBS_LAYERS,
+                    kv_elems=rows * OBS_KV_PER_LAYER * OBS_LAYERS)
+    if got != want:
+        raise AssertionError(f"REPRO_OBS={mode}: telemetry {got} against "
+                             f"the engine's {want}")
+    if not _nested_dispatch(events):
+        raise AssertionError(f"REPRO_OBS={mode}: no serve.kernel.dispatch "
+                             f"in a serve.phase.* in a serve.step")
+    return dict(checked=sorted(got), events=len(events),
+                gemm_call_sites_spanned=sum(
+                    e["name"] == "trace.serve_matmul" for e in events))
+
+
+def _set_obs(mode, directory=None) -> None:
+    """Set REPRO_OBS to ``mode`` (None: unset) and REPRO_OBS_DIR to
+    ``directory`` (None: unset)."""
+    import os
+    for name, value in (("REPRO_OBS", mode), ("REPRO_OBS_DIR", directory)):
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = str(value)
+
+
+# the CUDA runtime calls that launch a kernel, as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def _profiled_launch(run) -> dict:
+    """One call of ``run`` under torch.profiler: its device kernels by name
+    (the device's copies and fills apart: the profiler has been seen to
+    lose all of a window's copy records), the kernel-launch calls the host
+    made, and the device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    evs = prof.key_averages()
+    device = [ev for ev in evs
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(
+        kernels={ev.key: ev.count for ev in device
+                 if not ev.key.startswith(("Memcpy", "Memset"))},
+        copies=sum(ev.count for ev in device
+                   if ev.key.startswith(("Memcpy", "Memset"))),
+        launch_calls=sum(ev.count for ev in evs if ev.key in LAUNCH_CALLS),
+        device_ms=_device_ms(prof, 1))
+
+
+def obs_launch_costs(eng, steps: int = 3, rounds: int = 3) -> dict:
+    """The engine's all-slots decode launch (the model, the sentinels, the
+    probes when on, then the one copy to the host) under each of OBS_MODES
+    (every site reads REPRO_OBS at its call, so one engine serves all):
+    wall ms per launch (host clock, no profiler; the median of ``rounds``
+    rounds that take the modes in turn, ``steps`` launches each); then
+    ``rounds`` profiled single launches per mode, in turn: device ms (the
+    median), and the kernels by name and the host's kernel-launch calls of
+    the window with the most kernels (a profiler window can lose records,
+    never add them). The sentinels must flag nothing."""
+    eng._index[:] = 128
+    eng._tokens[:] = 0
+
+    def run(mode, n=steps):
+        _set_obs(mode)
+        for _ in range(n):
+            eng._launch_decode({})
+
+    walls = {m: [] for m in OBS_MODES}
+    profiled = {m: [] for m in OBS_MODES}
+    for mode in OBS_MODES:
+        run(mode)
+    for _ in range(rounds):
+        for mode in OBS_MODES:
+            t0 = time.perf_counter()
+            run(mode)
+            walls[mode].append((time.perf_counter() - t0) / steps * 1e3)
+    for _ in range(rounds):
+        for mode in OBS_MODES:
+            profiled[mode].append(_profiled_launch(lambda: run(mode, 1)))
+    out = {}
+    for mode in OBS_MODES:
+        fullest = max(profiled[mode], key=lambda p: sum(p["kernels"].values()))
+        out[mode] = dict(
+            decode_launch_wall_ms=statistics.median(walls[mode]),
+            decode_launch_device_ms=statistics.median(
+                p["device_ms"] for p in profiled[mode]),
+            kernels_per_launch=sum(fullest["kernels"].values()),
+            launch_calls_per_launch=fullest["launch_calls"],
+            copies_per_launch=fullest["copies"],
+            kernel_names=fullest["kernels"])
+    flagged = {s: int(c.sum()) for s, c in eng.guard.drain().items()}
+    if any(flagged.values()):
+        raise AssertionError(f"the sentinels flagged clean launches: "
+                             f"{flagged}")
+    return out
+
+
+def _kernel_count(fn) -> int:
+    """CUDA kernels one call of ``fn`` launches (torch.profiler)."""
+    def run():
+        fn()
+        torch.cuda.synchronize()
+    run()
+    return sum(_profiled_launch(run)["kernels"].values())
+
+
+def obs_phase(params, device, kern, kernels) -> int:
+    """Telemetry on the card (module docstring, phase 6b). Returns the
+    launches of ``kern``."""
+    import shutil
+    from repro_torch import obs
+    from repro_torch.core import envflags
+    from repro_torch.obs import quant_health
+    dump = ROOT / "build" / "obs_dump"
+    shutil.rmtree(dump, ignore_errors=True)
+    p = dict(params, layers=params["layers"][:OBS_LAYERS])
+    saved = [envflags.get_raw(k) for k in ("REPRO_OBS", "REPRO_OBS_DIR")]
+    act_stats, scaled_stats = quant_health.act_stats, \
+        quant_health._scaled_stats
+    captured, results, launches = {}, {}, 0
+
+    def capture_act(x, codec="m2xfp"):
+        captured.setdefault("act", (x.detach().clone(), codec))
+        return act_stats(x, codec)
+
+    def capture_scaled(xs, e, meta):
+        captured.setdefault("scaled", (xs.clone(), e.clone(), meta))
+        return scaled_stats(xs, e, meta)
+
+    try:
+        for mode in OBS_MODES:
+            _set_obs(mode, dump if mode == "1" else None)
+            if mode == "1":
+                quant_health.act_stats = capture_act
+                quant_health._scaled_stats = capture_scaled
+            obs.reset()
+            checked = {}
+            eng, n, res = serve_phase(
+                "m2xfp", device, kern, kernels, kv_quant="m2xfp",
+                layers=OBS_LAYERS, params=p, traffic=CODEC_TRAFFIC,
+                after_run=lambda e: checked.update(obs_check(e, mode)),
+                extra={"obs": mode})
+            quant_health.act_stats = act_stats
+            quant_health._scaled_stats = scaled_stats
+            launches += n
+            results[mode] = dict(outs=res["outs"],
+                                 serve_decode_step_ms=1e3
+                                 * eng.stats.decode_wall_s
+                                 / eng.stats.decode_steps, **checked)
+            if mode == "1":
+                sweeps = [e["dur"] / 1e6 for e in obs.tracer().events()
+                          if e["name"] == "serve.weight_health"]
+                weights = {
+                    name: obs.gauge(name).samples()
+                    for name in ("repro_quant_clip_rate",
+                                 "repro_quant_reencode_drift")}
+            if mode != OBS_MODES[-1]:
+                del eng
+        for mode, cost in obs_launch_costs(eng).items():
+            results[mode].update(cost)
+            emit("obs", mode=mode, **{k: v for k, v in results[mode].items()
+                                      if k not in ("outs", "kernel_names")})
+        del eng
+    finally:
+        quant_health.act_stats = act_stats
+        quant_health._scaled_stats = scaled_stats
+        _set_obs(*saved)
+    outs = [results[m]["outs"] for m in OBS_MODES]
+    if any(o != outs[0] for o in outs):
+        raise AssertionError("REPRO_OBS changed the served tokens")
+    off, host, full = (results[m] for m in OBS_MODES)
+    if off["kernel_names"] != host["kernel_names"] or \
+            off["launch_calls_per_launch"] != host["launch_calls_per_launch"]:
+        a, b = off["kernel_names"], host["kernel_names"]
+        diff = {k[:100]: (a.get(k, 0), b.get(k, 0)) for k in set(a) | set(b)
+                if a.get(k, 0) != b.get(k, 0)}
+        raise AssertionError(
+            f"the metrics and trace pillars changed the decode launch's "
+            f"kernels (name: unset, metrics,trace): {diff}; launch calls "
+            f"{off['launch_calls_per_launch']} -> "
+            f"{host['launch_calls_per_launch']}")
+    # the probes' statistics of one captured layer-0 activation and of its
+    # first K encode, on the card and on the CPU
+    x, codec = captured["act"]
+    xs, e, meta = captured["scaled"]
+    probes_equal = dict(
+        act=torch.equal(act_stats(x, codec)[2].cpu(),
+                        act_stats(x.cpu(), codec)[2]),
+        kv_encode=torch.equal(scaled_stats(xs, e, meta)[2].cpu(),
+                              scaled_stats(xs.cpu(), e.cpu(),
+                                           meta.cpu())[2]))    # m2xfp: meta
+    if not all(probes_equal.values()):
+        raise AssertionError(f"probes on the card differ from the CPU: "
+                             f"{probes_equal}")
+    x8 = x.reshape(-1, x.shape[-1])[:N_SLOTS]
+    doc = json.loads((dump / "trace.json").read_text())
+    if not _nested_dispatch(doc["traceEvents"]):
+        raise AssertionError("the dump's trace.json nests no dispatch")
+    weight = {}
+    for (name, samples) in weights.items():
+        for labels, v in samples.items():
+            lab = dict(labels)
+            if "layer" in lab:
+                weight.setdefault(lab["layer"], {})[
+                    "clip_rate" if "clip" in name else "reencode_drift"] = v
+    emit("obs_summary", layers=OBS_LAYERS, kv_quant="m2xfp",
+         tokens_identical=True, same_kernels_off_and_host_pillars=True,
+         probes_equal_cpu=probes_equal,
+         captured_activation_shape=list(x.shape),
+         metrics_trace_wall_ms_delta=host["decode_launch_wall_ms"]
+         - off["decode_launch_wall_ms"],
+         metrics_trace_device_ms_delta=host["decode_launch_device_ms"]
+         - off["decode_launch_device_ms"],
+         health_wall_ms_delta=full["decode_launch_wall_ms"]
+         - off["decode_launch_wall_ms"],
+         health_device_ms_delta=full["decode_launch_device_ms"]
+         - off["decode_launch_device_ms"],
+         health_extra_kernels_per_launch=full["kernels_per_launch"]
+         - off["kernels_per_launch"],
+         health_kernels_per_gemm_probe=_kernel_count(
+             lambda: act_stats(x8, codec)),
+         probes_per_launch=OBS_LAYERS * (7 + 2),
+         weight_health_s=sweeps, weight_layers=weight,
+         dump_events=len(doc["traceEvents"]),
+         dump_bytes={f.name: f.stat().st_size for f in dump.iterdir()})
+    return launches
+
+
+def dse_check(device) -> None:
+    """Every design-space strategy at each of DSE_SUBGROUPS (group 32,
+    floor rule) and mxfp4_reference on a seeded heavy-tailed DSE_SHAPE f32
+    tensor on the card: MSE relative to mxfp4_reference and EBW; the first
+    DSE_CHECK_ROWS rows equal to the same calls on the CPU, bit for bit."""
+    from repro_torch.core import dse
+    t0 = time.perf_counter()
+    x = torch.from_numpy(_heavy_tailed(np.random.default_rng(SEED),
+                                       DSE_SHAPE)).to(device)
+    xc = x[:DSE_CHECK_ROWS].cpu()
+
+    def mse(dq):
+        return float(((dq - x) ** 2).mean(dtype=torch.float64))
+
+    base_dq, base_ebw = dse.mxfp4_reference(x)
+    unequal = [] if _same_bits(base_dq[:DSE_CHECK_ROWS],
+                               dse.mxfp4_reference(xc)[0]) else ["mxfp4"]
+    base = mse(base_dq)
+    table = {}
+    for name in dse.STRATEGIES:
+        for sg in DSE_SUBGROUPS:
+            dq, e = dse.run_strategy(name, x, subgroup=sg)
+            table[f"{name}/sg{sg}"] = dict(rel_mse=mse(dq) / base, ebw=e)
+            if not _same_bits(dq[:DSE_CHECK_ROWS],
+                              dse.run_strategy(name, xc, subgroup=sg)[0]):
+                unequal.append(f"{name}/sg{sg}")
+            del dq
+    if unequal:
+        raise AssertionError(f"DSE on the card differs from the CPU: "
+                             f"{unequal}")
+    emit("dse", shape=list(DSE_SHAPE), group=32, rule="floor",
+         mxfp4_mse=base, mxfp4_ebw=base_ebw, strategies=table,
+         card_equals_cpu_rows=DSE_CHECK_ROWS, seconds=time.perf_counter()
+         - t0)
 
 
 def variant_gemm_check(timer, name: str, params: dict, kern, device,
@@ -2168,10 +2544,15 @@ def main() -> int:
     lap("guard")
     ideal_launches = codecs_phase(params, timer, gen, device, M2XFP,
                                   kernels)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     lap("codecs")
+    obs_launches = obs_phase(params, device, M2XFP, kernels)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dse_check(device)
+    lap("obs")
     variant_launches = variants_phase(timer, device, M2XFP, kernels)
     lap("variants")
     family_launches = families_phase(timer, device, M2XFP, kernels)
@@ -2181,7 +2562,8 @@ def main() -> int:
     train_launches = train_phase(device, M2XFP, kernels)
     summary["m2xfp_matmul"]["launches"] = (
         launches + kv_launches + guard_launches + ideal_launches
-        + variant_launches + family_launches + train_launches)
+        + obs_launches + variant_launches + family_launches
+        + train_launches)
     gc.collect()
     torch.cuda.empty_cache()
     lap("train")

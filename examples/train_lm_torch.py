@@ -9,17 +9,21 @@ preemption safety and optional M2XFP QAT.
         --d-model 64 --layers 2 --batch 4 --seq 32
 
 It runs on the card by default (``--device cuda``); on the CPU it runs
-the plain versions of every product.
+the plain versions of every product. With ``REPRO_OBS`` set it publishes
+the step metrics at its logging cadence and, with ``REPRO_OBS_DIR`` too,
+dumps them (and the checkpoint spans) there at the end.
 """
 import argparse
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
 from repro_torch.distributed import PreemptionGuard, StragglerMonitor
 from repro_torch.models.config import ModelConfig
-from repro_torch.train import AdamWConfig, make_train_state, make_train_step
+from repro_torch.train import AdamWConfig, make_train_state, \
+    make_train_step, publish_train_metrics
 
 
 def main():
@@ -74,6 +78,7 @@ def main():
             loss = float(metrics["loss"])      # waits for the step
             monitor.step_end(i)
             if i % 20 == 0 or i == args.steps - 1:
+                publish_train_metrics(metrics, step=i)   # REPRO_OBS-gated
                 print(f"step {i:5d}  loss {loss:.4f}  "
                       f"gnorm {float(metrics['grad_norm']):.3f}  "
                       f"lr {float(metrics['lr']):.2e}")
@@ -90,6 +95,7 @@ def main():
     finally:
         pf.close()
         guard.restore()
+    obs.autodump()        # metrics.jsonl + trace.json -> REPRO_OBS_DIR
     print("done.")
 
 

@@ -45,6 +45,8 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs import span
+
 __all__ = ["save_state", "restore_state", "read_manifest", "latest_step",
            "all_steps", "CheckpointCorruptError", "leaf_crc32",
            "CheckpointManager"]
@@ -90,7 +92,13 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
 def save_state(ckpt_dir: str, step: int, leaves: Mapping,
                extra: Optional[dict] = None, keep: int = 3) -> str:
     """Atomic checkpoint write of ``leaves`` (path -> tensor or array).
-    Returns the final directory path."""
+    Returns the final directory path. Spanned ``checkpoint.save`` under
+    the ``trace`` pillar of ``REPRO_OBS``."""
+    with span("checkpoint.save", cat="ckpt", dir=ckpt_dir, step=step):
+        return _save_state(ckpt_dir, step, leaves, extra, keep)
+
+
+def _save_state(ckpt_dir, step, leaves, extra, keep) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
     tmp = final + ".tmp"
@@ -168,7 +176,14 @@ def restore_state(ckpt_dir: str, template: Mapping,
     Raises :class:`CheckpointCorruptError`, naming the leaf whenever the
     container is readable enough to know it, when the npz is truncated or
     unreadable, a leaf is missing or a leaf fails its CRC; ``ValueError``
-    when a leaf's shape differs from the template's."""
+    when a leaf's shape differs from the template's. Spanned
+    ``checkpoint.restore`` under the ``trace`` pillar of ``REPRO_OBS``."""
+    with span("checkpoint.restore", cat="ckpt", dir=ckpt_dir,
+              step=-1 if step is None else step):
+        return _restore_state(ckpt_dir, template, step, verify)
+
+
+def _restore_state(ckpt_dir, template, step, verify):
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")

@@ -26,7 +26,9 @@ Packed-stream conventions (shared with ``repro_torch.kernels.layout``):
     inverse to bf16; ``kv_spec(b, w, nkv, hd, device)`` a zero page.
     These are plain PyTorch on either device: elementwise ops, a max, and
     error sums in a fixed order (``m2xfp._sum_last``), so the bytes do not
-    depend on how many tokens share a call.
+    depend on how many tokens share a call. The encode probes its scaled
+    values for the ``health`` pillar of ``REPRO_OBS`` (site
+    ``kv_encode``), as the reference's does.
 
 Packed-stream validation (``validate_packed``, ``validate_packed_tree``)
 checks a packed weight against what its encoder can emit and reports each
@@ -46,6 +48,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.kernels import layout, ops, ref
+from repro_torch.obs import quant_health
 from .dtypes import FP4_E2M1, exp2int, round_to_grid, sign_mag_code, \
     signed_fp4
 from .ebw import format_ebw
@@ -311,6 +314,9 @@ def _kv_encode_sgem(x: torch.Tensor) -> dict:
         xg, s, SUBGROUP, bits=2, adaptive=False, return_codes=True)
     s_final = (1.0 + k_sel.to(torch.float32) / 4.0) * s     # (..., ng, ns)
     xsub = xg.reshape(*xg.shape[:-1], N_SUB, SUBGROUP)
+    if quant_health.enabled("health"):      # REPRO_OBS health pillar
+        quant_health.probe_scaled("kv_encode", xsub / s_final[..., None], e,
+                                  k_sel, codec="m2xfp")
     q = round_to_grid(xsub / s_final[..., None], FP4_E2M1)
     codes = sign_mag_code(q, xsub < 0).reshape(*x.shape[:-1], hd)
     return {
@@ -336,6 +342,9 @@ def _kv_encode_mxfp4(x: torch.Tensor) -> dict:
     """(..., hd) -> plain MXFP4 streams (no meta byte)."""
     hd = x.shape[-1]
     xg, e, s = _kv_scale(x)
+    if quant_health.enabled("health"):      # REPRO_OBS health pillar
+        quant_health.probe_scaled("kv_encode", xg / s, e, None,
+                                  codec="mxfp4")
     q = round_to_grid(xg / s, FP4_E2M1)
     return {
         "codes": pack_nibbles(sign_mag_code(q, xg < 0).reshape(

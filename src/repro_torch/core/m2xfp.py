@@ -16,6 +16,10 @@ machinery builds M2-NVFP4 (paper Tbl. 6) over NVFP4's scales; the knobs
 bias) are the paper's ablations. ``PackedM2XFP`` is the packed layout of
 Sec. 5.2 along the last axis.
 
+The packed encoders probe their scaled values for the ``health`` pillar
+of ``REPRO_OBS`` (sites ``encode_act`` and ``encode_weight``), as the
+reference's do.
+
 Bit-identity with the reference hinges on sums in the same order: the
 search errors are summed left to right over the subgroup and then over
 the subgroups, as XLA reduces them, so near-ties pick the same k and b.
@@ -26,6 +30,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.obs import quant_health
 from .dtypes import (
     FP4_E2M1, FP6_E2M3, exp2int, fp4_value_to_code, fp6_code_to_value,
     fp6_value_to_code, round_to_grid, sign, sign_mag_code, signed_fp4,
@@ -268,7 +273,10 @@ def encode_act_m2xfp(x: torch.Tensor, group: int = GROUP,
     lead = x.shape[:-1]
     xg = group_reshape(x.to(torch.float32), group)
     e = shared_scale_exponent(xg.abs().amax(dim=-1, keepdim=True), rule)
-    q4, _, _, meta, _ = elem_em_encode_parts(xg, exp2int(e), subgroup)
+    s = exp2int(e)
+    q4, _, _, meta, _ = elem_em_encode_parts(xg, s, subgroup)
+    if quant_health.enabled("health"):      # REPRO_OBS health pillar
+        quant_health.probe_scaled("encode_act", xg / s, e, meta)
     codes = sign_mag_code(q4, xg < 0)
     return PackedM2XFP(
         codes=pack_nibbles(codes.reshape(*lead, -1)),
@@ -315,6 +323,9 @@ def encode_weight_m2xfp(w: torch.Tensor, group: int = GROUP,
     s_final = ((1.0 + k_sel.to(torch.float32) / 4.0)
                * exp2int(e_stored)[..., None])
     wsub = _subgroup(wg, subgroup)
+    if quant_health.enabled("health"):      # REPRO_OBS health pillar
+        quant_health.probe_scaled("encode_weight", wsub / s_final[..., None],
+                                  e_stored, k_sel)
     q = round_to_grid(wsub / s_final[..., None], FP4_E2M1)
     codes = sign_mag_code(q, wsub < 0)
     return PackedM2XFP(

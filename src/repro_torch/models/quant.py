@@ -18,13 +18,26 @@ Modes (``ModelConfig.quant``):
 Every format decision goes through the codec registry
 (``repro_torch.core.codecs``):
 ``fake_quant_weight`` / ``fake_quant_act`` look a codec up by name.
+
+Telemetry (``REPRO_OBS``) at the serve GEMM: the ``health`` pillar probes
+the activations about to be quantized online, on their device; the
+``metrics`` pillar counts the GEMM call sites by backend and the ``trace``
+pillar spans them. The reference counts and spans each call site once per
+trace of a jitted launch, not once per call; the port, which runs eagerly,
+does so once per call site (the caller's code line) per launch kind of an
+engine (``traced_once``), and once per call outside an engine's launch (an
+eager reference call traces every time). Off, each costs one flag check.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+import sys
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.codecs import PackedTensor, get_codec, packed_codecs
 from repro_torch.kernels.ops import packed_matmul
 from .numerics import dot_f32acc
@@ -32,8 +45,14 @@ from .numerics import dot_f32acc
 __all__ = [
     "fake_quant_weight", "fake_quant_act", "ste", "init_linear",
     "pack_serving_weight", "decode_serving_weight", "quantized_matmul",
-    "PackedTensor",
+    "PackedTensor", "traced_once",
 ]
+
+# the call sites of the serve GEMM already counted and spanned in the
+# current launch kind (None: outside an engine's launch, every call counts)
+_SITES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_serve_gemm_sites", default=None)
+_NO_SPAN = contextlib.nullcontext()
 
 
 def ste(x: torch.Tensor, qx: torch.Tensor) -> torch.Tensor:
@@ -115,19 +134,69 @@ def decode_serving_weight(p: PackedTensor, dtype=None) -> torch.Tensor:
         dtype or codec.decode_dtype)
 
 
+@contextlib.contextmanager
+def traced_once(seen: set):
+    """Within, each serve-GEMM call site counts and spans only its first
+    call; ``seen`` keeps the sites (an engine keeps one set per launch
+    kind, as the reference traces each jitted launch once)."""
+    token = _SITES.set(seen)
+    try:
+        yield
+    finally:
+        _SITES.reset(token)
+
+
+def _first_at_site(codec: str, k: int, n: int) -> bool:
+    """Whether this serve-GEMM call is its call site's first in the current
+    ``traced_once`` scope (always, outside one). The site is the line that
+    called ``quantized_matmul``, with the codec and the shape."""
+    seen = _SITES.get()
+    if seen is None:
+        return True
+    caller = sys._getframe(3)   # -> _serve_matmul -> quantized_matmul -> it
+    key = (caller.f_code.co_filename, caller.f_lineno, codec, k, n)
+    if key in seen:
+        return False
+    seen.add(key)
+    return True
+
+
 def _serve_matmul(x: torch.Tensor, w: PackedTensor) -> torch.Tensor:
     """Online activation fake-quant with the weight's codec and bf16
     rounding, then the codec's packed GEMM, or, for a codec without one,
     its decode and ``dot_f32acc`` of the activations upcast to the decoded
-    dtype. The f32 result is cast back to ``x.dtype``."""
+    dtype. The f32 result is cast back to ``x.dtype``.
+
+    Telemetry (module docstring): the ``health`` probe of ``x``; the
+    counter ``repro_serve_gemm_traces_total`` and the span
+    ``trace.serve_matmul`` labeled by backend ("cuda": the hand-written
+    kernel on a CUDA tensor; "plain": a CPU tensor's plain version, or a
+    codec without a kernel, which decodes -- the reference's "pallas" and
+    "xla"), codec, k and n."""
     codec = get_codec(w.codec)
+    on = obs.pillars()
+    if "health" in on:
+        obs.quant_health.probe_act(x, site="serve_gemm", codec=codec.name)
     k = w.shape[0]
     n = math.prod(w.shape[1:])
     xq = codec.fake_quant_act(x.to(torch.float32)).to(torch.bfloat16)
-    if codec.kernel is None:
-        wd = decode_serving_weight(w)
-        return dot_f32acc(xq.to(wd.dtype), wd).to(x.dtype)
-    out = packed_matmul(xq.reshape(-1, k), w.streams, w.codec)
+    span = _NO_SPAN
+    if ("metrics" in on or "trace" in on) and _first_at_site(
+            codec.name, k, n):
+        backend = "cuda" if codec.kernel is not None and x.is_cuda \
+            else "plain"
+        if "metrics" in on:
+            obs.counter(
+                "repro_serve_gemm_traces_total",
+                "serve GEMM call sites traced, by dispatched backend").inc(
+                backend=backend, codec=codec.name, k=k, n=n)
+        span = obs.span("trace.serve_matmul", cat="trace", backend=backend,
+                        codec=codec.name, k=k, n=n)
+    with span:
+        if codec.kernel is None:
+            wd = decode_serving_weight(w)
+            return dot_f32acc(xq.to(wd.dtype), wd).to(x.dtype)
+        out = packed_matmul(xq.reshape(-1, k), w.streams, w.codec)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
 
 

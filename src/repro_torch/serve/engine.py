@@ -1,5 +1,5 @@
 """Batched autoregressive serving engine over packed weights (port of
-repro.serve.engine; its telemetry spans and metrics are not ported).
+repro.serve.engine).
 
 The engine owns a packed parameter dict (``prequantize_params`` or
 ``load_packed_checkpoint``), per-slot KV caches (``init_caches``: batch row
@@ -22,9 +22,20 @@ every layer) while the other slots go on bit-identical; a launch that
 raises :class:`TransientStepError` before it runs is retried; requests may
 carry deadlines and the admission queue may be bounded. Nothing else is
 caught: a CUDA error propagates, and no step moves to the CPU.
+
+Telemetry (``repro_torch.obs``, gated by ``REPRO_OBS``) is the reference's:
+spans around run, step, admit, plan, the phase, each launch
+(``serve.kernel.dispatch``) and the sampling, instants at expiry,
+quarantine and eviction; step, token, TTFT, queue and occupancy metrics;
+and under the ``health`` pillar a per-layer sweep of the packed weights at
+start-up and the probes of each launch, whose statistics come to the host
+in the launch's one copy. With ``REPRO_OBS`` unset a launch runs exactly
+the kernels it runs without telemetry; with the ``metrics`` and ``trace``
+pillars alone too (they are host-side).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence
@@ -32,13 +43,20 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.codecs import PackedTensor, packed_leaves, \
     validate_packed
 from repro_torch.models.model import decode_step, init_caches, prefill_chunk
+from repro_torch.models.quant import traced_once
+from repro_torch.obs import quant_health
 from . import guard as _guard
 from .guard import (EngineFailedError, EngineGuard, GuardConfig,
                     TransientStepError)
 from .scheduler import AdmissionError, Request, SlotScheduler
+
+# TTFT is quantized in engine steps; buckets cover 1..256-step prompts
+_TTFT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+_OFF = contextlib.nullcontext()     # a launch's telemetry with REPRO_OBS off
 
 __all__ = ["ServeEngine", "ServeStats", "tree_nbytes"]
 
@@ -241,6 +259,18 @@ class ServeEngine:
         self._step, self._prefill = _launches(
             cfg, n_slots, bool(gcfg and gcfg.nan_checks),
             bool(gcfg and gcfg.kv_checks))
+        # telemetry state: the probes of the launch in flight, and the
+        # serve-GEMM call sites counted per launch kind (the reference
+        # counts them once per trace of each jitted launch)
+        self._probes = quant_health.ProbeBuffer()
+        self._gemm_sites = {"decode_step": set(), "prefill_chunk": set()}
+
+        # quantization-health sweep of the packed weights: per-layer clip
+        # rate / scale saturation / meta modes / re-encode drift gauges,
+        # once at startup (off the decode hot path)
+        if obs.enabled("health"):
+            with obs.span("serve.weight_health", cat="obs"):
+                obs.quant_health.weight_tree_health(params)
 
     # -- request lifecycle -------------------------------------------------
 
@@ -292,6 +322,10 @@ class ServeEngine:
         stacked, leaves = weights[int(self.guard._rng.integers(len(weights)))]
         if not validate_packed(leaves if stacked else leaves[0]):
             return
+        if obs.enabled():
+            obs.counter("repro_guard_stream_invalid_total",
+                        "packed leaves failing codec stream validation"
+                        ).inc(stage="admit")
         self.params, _ = _guard.verify_packed_tree(
             self.params, cfg=self.cfg, source_params=self.source_params)
         self.guard.degrade()
@@ -302,29 +336,55 @@ class ServeEngine:
         return torch.from_numpy(a).to(self.device)
 
     def _fetch(self, rows: torch.Tensor, counts: dict) -> np.ndarray:
-        """Copy the sampled rows (B, V) f32 and the sentinels' per-slot
-        counts to the host in one copy (one wait for the device), deliver
-        the counts to the guard's mailbox, return the rows."""
+        """Copy the sampled rows (B, V) f32, the sentinels' per-slot counts
+        and the launch's pending health-probe statistics to the host in one
+        copy (one wait for the device), deliver the counts to the guard's
+        mailbox and the statistics to the registry, return the rows."""
         sites = list(counts)
-        if not sites:
+        keys, stats = self._probes.take()
+        if not sites and not stats:
             return rows.float().cpu().numpy()
-        v = rows.shape[1]
-        host = torch.cat([rows.float().view(torch.int32)]
-                         + [counts[s].to(torch.int32)[:, None]
-                            for s in sites], dim=1).cpu().numpy()
+        b, v = rows.shape
+        table = torch.cat([rows.float().view(torch.int32)]
+                          + [counts[s].to(torch.int32)[:, None]
+                             for s in sites], dim=1)        # (B, V + sites)
+        if stats:
+            flat = torch.cat([table.reshape(-1), torch.stack(stats).view(
+                torch.int32).reshape(-1)]).cpu().numpy()
+            cut = table.numel()
+            self._probes.deliver(keys, flat[cut:].copy().view(
+                np.int64).reshape(len(stats), -1))
+            host = flat[:cut].reshape(table.shape)
+        else:
+            host = table.cpu().numpy()
         for j, site in enumerate(sites):
             self.guard.mailbox.deliver(site, host[:, v + j])
         return np.ascontiguousarray(host[:, :v]).view(np.float32)
+
+    def _observed(self, kind: str, **args):
+        """The telemetry of one launch of ``kind``: with ``REPRO_OBS`` off
+        a shared no-op context; else the ``serve.kernel.dispatch`` span,
+        the kind's serve-GEMM call sites (``traced_once``) and this engine's
+        probe buffer (drained by ``_fetch``)."""
+        if not obs.pillars():
+            return _OFF
+        stack = contextlib.ExitStack()
+        stack.enter_context(obs.span("serve.kernel.dispatch", kind=kind,
+                                     **args))
+        stack.enter_context(traced_once(self._gemm_sites[kind]))
+        stack.enter_context(quant_health.collect(self._probes))
+        return stack
 
     def _launch_decode(self, chunks) -> np.ndarray:
         """One-token launch for every slot -> (B, V) f32 logits."""
         for slot, req in self.scheduler.active.items():
             if req.phase == "prefill":
                 self._tokens[slot, 0] = req.prompt[req.consumed]
-        logits, counts = self._step(
-            self.params, {"tokens": self._to_device(self._tokens)},
-            self.caches, self._to_device(self._index))
-        return self._fetch(logits[:, -1], counts)
+        with self._observed("decode_step", slots=self.n_slots):
+            logits, counts = self._step(
+                self.params, {"tokens": self._to_device(self._tokens)},
+                self.caches, self._to_device(self._index))
+            return self._fetch(logits[:, -1], counts)
 
     def _launch_prefill(self, chunks) -> np.ndarray:
         """Mixed chunked launch -> (B, V) f32 logits at each slot's last
@@ -340,12 +400,14 @@ class ServeEngine:
                 toks[slot, :c] = req.prompt[req.consumed:req.consumed + c]
             else:
                 toks[slot, 0] = self._tokens[slot, 0]
-        logits, counts = self._prefill(
-            self.params, {"tokens": self._to_device(toks)}, self.caches,
-            self._to_device(self._index), self._to_device(lens))
-        last = self._to_device(np.maximum(lens - 1, 0))
-        rows = torch.arange(self.n_slots, device=self.device)
-        return self._fetch(logits[rows, last], counts)
+        with self._observed("prefill_chunk", slots=self.n_slots,
+                            tokens=int(lens.sum())):
+            logits, counts = self._prefill(
+                self.params, {"tokens": self._to_device(toks)}, self.caches,
+                self._to_device(self._index), self._to_device(lens))
+            last = self._to_device(np.maximum(lens - 1, 0))
+            rows = torch.arange(self.n_slots, device=self.device)
+            return self._fetch(logits[rows, last], counts)
 
     # -- the step loop -----------------------------------------------------
 
@@ -358,7 +420,8 @@ class ServeEngine:
         quarantines beyond ``max_quarantines``)."""
         if self.guard:
             self.guard.check_alive()
-        return self._step_inner()
+        with obs.span("serve.step", step=self.stats.steps):
+            return self._step_inner()
 
     def _guarded_launch(self, fn, chunks) -> np.ndarray:
         """Run a launch with the guard's retry policy. Only
@@ -386,10 +449,11 @@ class ServeEngine:
     def _expire_deadlines(self) -> None:
         for req in self.scheduler.expire(self.stats.steps):
             self.stats.expired += 1
+            where = ("running" if req.fail_reason == "deadline_running"
+                     else "queued")
             if self.guard:
-                self.guard.record_expired(
-                    "running" if req.fail_reason == "deadline_running"
-                    else "queued")
+                self.guard.record_expired(where)
+            obs.instant("serve.expire", rid=req.rid, where=where)
 
     def _contain_faults(self, chunks, rows: np.ndarray) -> None:
         """Poisoned-slot containment, between launch and token routing.
@@ -423,28 +487,40 @@ class ServeEngine:
             self._tokens[slot, 0] = 0
             chunks[slot] = 0                       # no routing this step
             if occupied:
-                self.scheduler.quarantine(slot, self.stats.steps,
-                                          reason=site)
+                req = self.scheduler.quarantine(slot, self.stats.steps,
+                                                reason=site)
                 self.stats.quarantined += 1
                 self.guard.record_quarantine(site)
+                obs.instant("serve.quarantine", rid=req.rid, slot=slot,
+                            site=site)
             else:
                 self.guard.record_scrub(site)
 
     def _step_inner(self) -> int:
         self._expire_deadlines()
-        self._admit()
+        with obs.span("serve.admit"):
+            self._admit()
         if not self.scheduler.active:
             return 0
-        chunks = self.scheduler.plan_chunks(self.chunk, self.prefill_budget)
+        with obs.span("serve.plan"):
+            chunks = self.scheduler.plan_chunks(self.chunk,
+                                                self.prefill_budget)
         decode_only = all(c == 1 for c in chunks.values())
+        phase = "decode" if decode_only else "prefill"
         t0 = time.perf_counter()
-        launch = self._launch_decode if decode_only else self._launch_prefill
-        sampled_from = self._guarded_launch(launch, chunks)  # synchronizes
+        with obs.span(f"serve.phase.{phase}",
+                      slots=len(self.scheduler.active)):
+            launch = self._launch_decode if decode_only \
+                else self._launch_prefill
+            sampled_from = self._guarded_launch(launch, chunks)  # syncs
         dt = time.perf_counter() - t0
         if self.guard:
             self._contain_faults(chunks, sampled_from)
-        sampled = self.sample_fn(sampled_from)
+        with obs.span("serve.sample"):
+            sampled = self.sample_fn(sampled_from)
 
+        finished = 0
+        first_tokens, new_prefill, new_generated = [], 0, 0
         self.stats.steps += 1
         if decode_only:
             self.stats.decode_steps += 1
@@ -452,7 +528,6 @@ class ServeEngine:
         else:
             self.stats.prefill_steps += 1
             self.stats.prefill_wall_s += dt
-        finished = 0
         for slot, req in list(self.scheduler.active.items()):
             c = chunks.get(slot, 0)
             if c == 0:
@@ -460,35 +535,76 @@ class ServeEngine:
             self.stats.slot_steps += 1
             if req.phase == "prefill":
                 req.consumed += c
-                if req.consumed < len(req.prompt):
-                    self.stats.prefill_tokens += c
+                still_prefilling = req.consumed < len(req.prompt)
+                fed = c - (0 if still_prefilling else 1)
+                self.stats.prefill_tokens += fed
+                new_prefill += fed
+                if still_prefilling:
                     self._index[slot] += c
                     continue                   # logits discarded
                 # the chunk ended on the last prompt token: its logits
                 # sample the first generated token
-                self.stats.prefill_tokens += c - 1
             self.stats.generated_tokens += 1
+            new_generated += 1
             tok = int(sampled[slot])
             req.output.append(tok)
             if req.first_token_step < 0:
                 req.first_token_step = self.stats.steps
+                first_tokens.append(req)
             self._tokens[slot, 0] = tok
             self._index[slot] += c
             if req.done:
                 self.scheduler.evict(slot, self.stats.steps)
+                obs.instant("serve.evict", rid=req.rid)
                 finished += 1
         if self.guard:
             self.guard.note_step(dt)
+        if obs.enabled():
+            self._record_step_metrics(phase, dt, first_tokens,
+                                      new_prefill, new_generated, finished)
         return finished
+
+    def _record_step_metrics(self, phase, dt, first_tokens, new_prefill,
+                             new_generated, finished) -> None:
+        obs.histogram("repro_serve_step_latency_seconds",
+                      "wall seconds per engine launch").observe(
+            dt, phase=phase)
+        obs.counter("repro_serve_steps_total",
+                    "engine launches").inc(phase=phase)
+        if new_prefill:
+            obs.counter("repro_serve_tokens_total",
+                        "tokens through the engine").inc(
+                new_prefill, kind="prefill")
+        if new_generated:
+            obs.counter("repro_serve_tokens_total", "").inc(
+                new_generated, kind="generated")
+        if finished:
+            obs.counter("repro_serve_requests_finished_total",
+                        "requests that completed").inc(finished)
+        for req in first_tokens:
+            obs.histogram("repro_serve_ttft_steps",
+                          "engine steps from admission to first token",
+                          buckets=_TTFT_BUCKETS).observe(req.ttft_steps)
+        obs.gauge("repro_serve_queue_depth",
+                  "requests waiting for a slot").set(
+            len(self.scheduler.queue))
+        obs.gauge("repro_serve_active_slots",
+                  "slots holding a running request").set(
+            len(self.scheduler.active))
+        obs.gauge("repro_serve_occupancy",
+                  "mean fraction of slots progressing per step").set(
+            self.stats.occupancy)
 
     def run(self) -> List[Request]:
         """Step until queue and slots drain. Returns the requests that
         finished during this drain, in submission order."""
         already_done = len(self.scheduler.finished)
         t0 = time.perf_counter()
-        while self.scheduler.has_work:
-            self.step()
+        with obs.span("serve.run", slots=self.n_slots):
+            while self.scheduler.has_work:
+                self.step()
         self.stats.wall_s += time.perf_counter() - t0
+        obs.autodump()          # metrics.jsonl + trace.json -> REPRO_OBS_DIR
         return sorted(self.scheduler.finished[already_done:],
                       key=lambda r: r.rid)
 

@@ -19,8 +19,9 @@ needs to contain it:
   (faults seen and contained: quarantines, scrubs, watchdog trips, step
   retries; service goes on) and FAILED (fault budget exhausted; the engine
   refuses further steps), with the knobs of :class:`GuardConfig` and the
-  reference's fault counters in :meth:`EngineGuard.summary`. The
-  reference's ``repro_guard_*`` metrics are telemetry, not ported yet.
+  reference's fault counters in :meth:`EngineGuard.summary`. The same
+  events feed the reference's ten ``repro_guard_*`` metrics, each gated by
+  ``REPRO_OBS`` (``obs.enabled()``).
 
 * **Packed-stream verification** (:func:`verify_packed_tree`): codec
   stream validation over a packed weight dict, repaired by re-quantizing
@@ -40,6 +41,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.codecs import (PackedTensor, get_codec, packed_leaves,
                                      validate_packed, validate_packed_tree)
 
@@ -179,7 +181,8 @@ class EngineGuard:
     drains them (:meth:`drain`), records contained faults through the
     ``record_*`` methods, and calls :meth:`note_step` at the end of each
     step, which runs the watchdog and the DEGRADED -> HEALTHY recovery
-    streak."""
+    streak. All ``repro_guard_*`` metrics are gated by ``REPRO_OBS``
+    (``obs.enabled()``) like every other pillar."""
 
     def __init__(self, cfg: Optional[GuardConfig] = None):
         self.cfg = cfg or GuardConfig()
@@ -196,12 +199,20 @@ class EngineGuard:
         self._streak = 0                   # consecutive clean steps
         self._dirty_step = False           # fault recorded this step
         self._rng = np.random.default_rng(self.cfg.seed)
+        self._set_state_gauge()
 
     # -- state machine -----------------------------------------------------
+
+    def _set_state_gauge(self) -> None:
+        if obs.enabled():
+            obs.gauge("repro_guard_health_state",
+                      "engine health (0 healthy, 1 degraded, 2 failed)"
+                      ).set(HEALTH_LEVEL[self.state])
 
     def _escalate(self, to: str) -> None:
         if HEALTH_LEVEL[to] > HEALTH_LEVEL[self.state]:
             self.state = to
+            self._set_state_gauge()
 
     def degrade(self) -> None:
         self._streak = 0
@@ -223,9 +234,15 @@ class EngineGuard:
         """End-of-step bookkeeping: watchdog + recovery streak."""
         if self.cfg.watchdog_s is not None and dt > self.cfg.watchdog_s:
             self.watchdog_trips += 1
+            if obs.enabled():
+                obs.counter("repro_guard_watchdog_trips_total",
+                            "launches over the wall-clock budget").inc()
             self.degrade()
         if self.state == DEGRADED:
             self.degraded_steps += 1
+            if obs.enabled():
+                obs.counter("repro_guard_degraded_steps_total",
+                            "steps served while DEGRADED").inc()
             if self._dirty_step:
                 self._streak = 0
             else:
@@ -233,6 +250,7 @@ class EngineGuard:
                 if self._streak >= self.cfg.recovery_steps:
                     self.state = HEALTHY
                     self._streak = 0
+                    self._set_state_gauge()
         self._dirty_step = False
 
     # -- sentinel plumbing -------------------------------------------------
@@ -245,6 +263,9 @@ class EngineGuard:
 
     def record_quarantine(self, site: str) -> None:
         self.quarantines += 1
+        if obs.enabled():
+            obs.counter("repro_guard_quarantine_total",
+                        "requests evicted for poisoned state").inc(site=site)
         self.degrade()
         if self.cfg.max_quarantines is not None \
                 and self.quarantines > self.cfg.max_quarantines:
@@ -254,17 +275,29 @@ class EngineGuard:
     def record_scrub(self, site: str) -> None:
         """Poison seen in an *unoccupied* slot: scrubbed, nobody evicted."""
         self.scrubs += 1
+        if obs.enabled():
+            obs.counter("repro_guard_scrub_total",
+                        "idle-slot cache scrubs").inc(site=site)
         self.degrade()
 
     def record_retry(self) -> None:
         self.retries += 1
+        if obs.enabled():
+            obs.counter("repro_guard_step_retries_total",
+                        "transient launch failures retried").inc()
         self.degrade()
 
     def record_expired(self, where: str, n: int = 1) -> None:
         self.expired += n
+        if obs.enabled():
+            obs.counter("repro_guard_expired_total",
+                        "requests past their deadline").inc(n, where=where)
 
     def record_shed(self, reason: str) -> None:
         self.shed += 1
+        if obs.enabled():
+            obs.counter("repro_guard_shed_total",
+                        "requests rejected at admission").inc(reason=reason)
 
     def maybe_verify_admit(self) -> bool:
         """Seeded coin flip for the verify-on-admit spot check."""
@@ -323,10 +356,16 @@ def verify_packed_tree(packed, cfg=None, source_params=None,
         factor instead of to inf/NaN.
 
     Anything else raises :class:`StreamIntegrityError` naming the leaves.
-    The given tree is not modified."""
+    The given tree is not modified. Metrics:
+    ``repro_guard_stream_invalid_total{stage="weights"}`` per bad weight,
+    ``repro_guard_stream_repair_total{mode}`` per repair."""
     report = validate_packed_tree(packed)
     if not report:
         return packed, []
+    if obs.enabled():
+        obs.counter("repro_guard_stream_invalid_total",
+                    "packed leaves failing codec stream validation").inc(
+            len(report), stage="weights")
     if not repair:
         detail = "; ".join(f"{k}: {'; '.join(v)}"
                            for k, v in sorted(report.items()))
@@ -363,6 +402,10 @@ def verify_packed_tree(packed, cfg=None, source_params=None,
             f"clamping and no source weights were given to re-quantize "
             f"from ({detail}); re-run prequantize_checkpoint",
             leaves=unrepairable)
+    if obs.enabled():
+        for _, mode in repairs:
+            obs.counter("repro_guard_stream_repair_total",
+                        "packed-leaf repairs by mode").inc(mode=mode)
     return _replace_packed(packed, fixed), repairs
 
 

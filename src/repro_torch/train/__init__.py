@@ -1,7 +1,7 @@
 """Training of the port (port of repro.train): AdamW with the
 warmup-cosine schedule and global-norm clipping, gradient compression
-with error feedback (single leaf), and the plain train step with
-microbatch accumulation."""
+with error feedback (single leaf), the plain train step with microbatch
+accumulation, and its metrics through the telemetry registry."""
 from .compression import (  # noqa: F401
     CompressionConfig, compress_decompress, init_error_feedback,
 )
@@ -11,11 +11,12 @@ from .optimizer import (  # noqa: F401
 )
 from .trainer import (  # noqa: F401
     cast_for_compute, make_train_state, make_train_step,
+    publish_train_metrics,
 )
 
 __all__ = [
     "AdamWConfig", "CompressionConfig", "adamw_init", "adamw_update",
     "cast_for_compute", "clip_by_global_norm", "compress_decompress",
     "global_norm", "init_error_feedback", "make_train_state",
-    "make_train_step", "warmup_cosine",
+    "make_train_step", "publish_train_metrics", "warmup_cosine",
 ]

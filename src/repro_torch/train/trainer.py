@@ -10,10 +10,12 @@ gradients and the optimizer's arithmetic are f32. The cast's backward
 hands AdamW an f32 gradient holding a bf16 value, as JAX's transpose of
 ``astype`` does.
 
+``publish_train_metrics`` streams a step's metrics through the
+telemetry registry (``REPRO_OBS``).
+
 Not ported (ROADMAP): the compressed cross-pod step and the mesh
-shardings (``train_state_shardings``, ``batch_sharding``) need a
-multi-pod mesh (A11); ``publish_train_metrics`` needs the metrics
-registry (A7).
+shardings (``train_state_shardings``, ``batch_sharding``) need a multi-pod
+mesh (A11).
 """
 from __future__ import annotations
 
@@ -21,12 +23,49 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.tree import tree_leaves, tree_map
 from .compression import CompressionConfig, init_error_feedback
 from .optimizer import AdamWConfig, adamw_init, adamw_update, warmup_cosine
 
-__all__ = ["make_train_state", "make_train_step", "cast_for_compute"]
+__all__ = ["make_train_state", "make_train_step", "cast_for_compute",
+           "publish_train_metrics"]
+
+
+def publish_train_metrics(metrics: dict, step: Optional[int] = None) -> None:
+    """Stream a train-step metrics dict (loss / grad_norm / lr / ...)
+    through the obs registry as ``repro_train_<name>`` gauges plus a
+    ``repro_train_steps_total`` counter.
+
+    No-op with REPRO_OBS off. When on, the scalar tensors come to the host
+    in one copy, which waits for the step: call it at the logging cadence.
+    Entries that are not scalars are skipped."""
+    if not obs.enabled():
+        return
+    names, tensors, values = [], [], {}
+    for name, value in metrics.items():
+        if isinstance(value, torch.Tensor):
+            if value.numel() == 1:
+                names.append(name)
+                tensors.append(value.detach().reshape(()).to(torch.float64))
+            continue
+        try:
+            values[name] = float(value)
+        except (TypeError, ValueError):
+            continue                    # non-scalar entry: skip, don't die
+    if tensors:
+        host = torch.stack([t.to(tensors[0].device) for t in tensors]).cpu()
+        values.update(zip(names, host.tolist()))
+    for name in metrics:
+        if name in values:
+            obs.gauge(f"repro_train_{name}",
+                      f"latest train-step metric {name!r}").set(values[name])
+    obs.counter("repro_train_steps_total",
+                "train steps streamed through the registry").inc()
+    if step is not None:
+        obs.gauge("repro_train_step", "latest published step index").set(
+            float(step))
 
 
 def cast_for_compute(params):

@@ -11,7 +11,11 @@ of slice 11 (the MoE engine and its routing against the CPU, embedding
 input's chunked prefill at full width), and training (slice 12: the
 products' backward and a full-width train step against the CPU, the card's
 train step deterministic and resumed bit for bit from a checkpoint,
-``loss_fn`` under serve through the m2xfp kernel at M = 4096). Each
+``loss_fn`` under serve through the m2xfp kernel at M = 4096), and
+telemetry and the design-space study (the health probes and the weight
+sweep against the CPU, the decode launch's kernels with telemetry off and
+with its host-only pillars, the ten strategies against the CPU).
+Each
 decides inside its body whether there is a CUDA device and skips without
 one. This file imports no JAX, so it also runs where only the port is
 installed:
@@ -1343,3 +1347,155 @@ def test_cuda_serve_loss_through_kernel_at_m4096(monkeypatch):
         x.abs(), ref.decode_w_sgem_ref(wp).abs())
     assert x.shape[0] == 4096
     assert bool(((got - want).abs() <= bound).all())
+
+
+# ---------------------------------------------------------------------------
+# Telemetry and the design-space study
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_cuda_probes_equal_cpu_obs(monkeypatch):
+    """The health probes' statistics on the card equal the CPU's at full
+    width: probe_act of (8, 4096) and (64, 11008) activations for m2xfp,
+    mxfp4 and m2xfp_ideal6, and probe_scaled of the encoders (the m2xfp and
+    mxfp4 KV encodes of a full-width (8, 8, 32, 128) K, encode_act_m2xfp
+    of (64, 4096), encode_weight_m2xfp of a (512, 4096) weight slice),
+    each through an engine-style ProbeBuffer."""
+    _need_cuda()
+    from repro_torch.core import codecs, m2xfp
+    from repro_torch.obs import quant_health
+    monkeypatch.setenv("REPRO_OBS", "health")
+    rng = np.random.default_rng(11)
+
+    def stats_of(fn, x):
+        buf = quant_health.ProbeBuffer()
+        with quant_health.collect(buf):
+            fn(x)
+        keys, stats = buf.take()
+        return keys, torch.stack(stats).cpu()
+
+    for m, k in ((8, 4096), (64, 11008)):
+        x = torch.from_numpy(heavy_tailed(rng, (m, k))).to(torch.bfloat16)
+        for codec in ("m2xfp", "mxfp4", "m2xfp_ideal6"):
+            got = stats_of(lambda t: quant_health.probe_act(t, "s", codec),
+                           x.cuda())
+            want = stats_of(lambda t: quant_health.probe_act(t, "s", codec),
+                            x)
+            assert got[0] == want[0] and torch.equal(got[1], want[1]), \
+                (m, k, codec)
+    kv = torch.from_numpy(heavy_tailed(rng, (8, 8, 32, 128))).to(
+        torch.bfloat16)
+    cases = [(codecs._kv_encode_sgem, kv), (codecs._kv_encode_mxfp4, kv),
+             (m2xfp.encode_act_m2xfp,
+              torch.from_numpy(heavy_tailed(rng, (64, 4096)))),
+             (m2xfp.encode_weight_m2xfp,
+              torch.from_numpy(heavy_tailed(rng, (512, 4096)) * 0.02))]
+    for fn, x in cases:
+        got, want = stats_of(fn, x.cuda()), stats_of(fn, x)
+        assert got[0] == want[0] and torch.equal(got[1], want[1]), fn
+        assert int(got[1][:, 0].sum()) > 0           # something clipped
+
+
+def _full_width_engine(kv_quant="m2xfp", layers=2, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = get_config("paper-llama2-7b", quant="serve", kv_quant=kv_quant,
+                     n_layers=layers)
+    params = init_packed_params(torch.Generator("cuda").manual_seed(0), cfg,
+                                "cuda")
+    return params, cfg, lambda: ServeEngine(params, cfg, n_slots=8,
+                                            max_len=256, device="cuda", **kw)
+
+
+@pytest.mark.gpu
+def test_cuda_obs_off_same_launches(monkeypatch):
+    """Full-width paper-llama2-7b, 2 layers, m2xfp KV: the engine's decode
+    launch runs as many CUDA kernels with REPRO_OBS unset as with
+    "metrics,trace" (host-only pillars), and more under "1" (the probes);
+    the served tokens are equal under unset, "metrics,trace" and "1"."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    _, _, make = _full_width_engine()
+    rng = np.random.default_rng(3)
+    prompts = [list(map(int, rng.integers(0, 32000, n)))
+               for n in (5, 17, 9, 30)]
+
+    def kernels(eng):
+        """Kernels of one decode launch: the most of three profiled
+        launches (a profiler window can lose records, never add them; the
+        device's copies and fills are left out, whose records it has been
+        seen to lose)."""
+        eng._index[:] = 64
+        eng._launch_decode({})
+        counts = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng._launch_decode({})
+            counts.append(sum(
+                ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.key.startswith(("Memcpy", "Memset"))))
+        return max(counts)
+
+    counts, outs = {}, {}
+    for mode in (None, "metrics,trace", "1"):
+        if mode is None:
+            monkeypatch.delenv("REPRO_OBS", raising=False)
+        else:
+            monkeypatch.setenv("REPRO_OBS", mode)
+        obs.reset()
+        eng = make()
+        outs[mode] = eng.generate(prompts, 6)
+        counts[mode] = kernels(eng)
+    obs.reset()
+    assert counts[None] == counts["metrics,trace"] < counts["1"]
+    assert outs[None] == outs["metrics,trace"] == outs["1"]
+
+
+@pytest.mark.gpu
+def test_cuda_weight_health_equals_cpu(monkeypatch):
+    """weight_tree_health on the card reports what it reports on the CPU:
+    one full-width paper-llama2-7b layer's stream statistics (clip,
+    saturation and metadata rates, equal), and the re-encode drift of a
+    (4096, 512) m2xfp and mxfp4 weight slice (equal up to the f32 means'
+    summation order: 2^-20 relative)."""
+    _need_cuda()
+    from repro_torch.models.quant import pack_serving_weight
+    from repro_torch.obs import quant_health
+    monkeypatch.setenv("REPRO_OBS", "health")
+    params, _, _ = _full_width_engine(layers=1)
+    got = quant_health.weight_tree_health(params, drift=False)
+    want = quant_health.weight_tree_health(_to_cpu(params), drift=False)
+    assert got == want and len(got) == 7
+    w = torch.from_numpy(heavy_tailed(np.random.default_rng(4),
+                                      (4096, 512)) * 0.02)
+    tree = {fmt: pack_serving_weight(w, fmt) for fmt in ("m2xfp", "mxfp4")}
+    got = quant_health.weight_tree_health(_to_device(tree, "cuda"))
+    want = quant_health.weight_tree_health(tree)
+    for key in want:
+        d_got, d_want = got[key].pop("reencode_drift"), \
+            want[key].pop("reencode_drift")
+        assert got[key] == want[key]
+        assert abs(d_got - d_want) <= 2.0 ** -20 * max(d_got, d_want)
+
+
+@pytest.mark.gpu
+def test_cuda_dse_equals_cpu():
+    """All ten design-space strategies at subgroups 2, 4, 8 and 16, and
+    mxfp4_reference, on a heavy-tailed (64, 4096) f32 tensor: the card's
+    bits equal the CPU's."""
+    _need_cuda()
+    from repro_torch.core import dse
+    x = torch.from_numpy(heavy_tailed(np.random.default_rng(8), (64, 4096)))
+    assert torch.equal(dse.mxfp4_reference(x.cuda())[0].cpu(),
+                       dse.mxfp4_reference(x)[0])
+    for name in dse.STRATEGIES:
+        for sg in (2, 4, 8, 16):
+            got, e_got = dse.run_strategy(name, x.cuda(), subgroup=sg)
+            want, e_want = dse.run_strategy(name, x, subgroup=sg)
+            assert e_got == e_want
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32)), (name, sg)

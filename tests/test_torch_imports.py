@@ -1,7 +1,8 @@
 """The port stands alone: nothing under ``src/repro_torch/``, nothing in
 ``chip_smoke.py`` and nothing in ``examples/train_lm_torch.py`` imports JAX, the reference package ``repro`` or
 ``ml_dtypes`` (the card's machine has none of them; bf16 checkpoint leaves
-restore by bit view)."""
+restore by bit view), and none of them reads a ``REPRO_*`` flag through
+``os.environ`` but ``repro_torch.core.envflags``."""
 import ast
 from pathlib import Path
 
@@ -40,4 +41,41 @@ def test_every_port_module_is_scanned():
             "serve/prequant.py", "serve/guard.py", "testing/faults.py",
             "testing/__init__.py", "data/pipeline.py",
             "distributed/straggler.py", "train/optimizer.py",
-            "train/compression.py", "train/trainer.py"} <= names
+            "train/compression.py", "train/trainer.py", "core/envflags.py",
+            "core/dse.py", "obs/__init__.py", "obs/registry.py",
+            "obs/tracing.py", "obs/quant_health.py"} <= names
+
+
+def _environ_reads(path: Path) -> list:
+    """``REPRO_*`` names read through ``os.environ`` or ``os.getenv``."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        target = None
+        if isinstance(node, ast.Subscript):
+            target, args = node.value, [node.slice]
+        elif isinstance(node, ast.Call) and isinstance(node.func,
+                                                       ast.Attribute):
+            target, args = node.func.value, node.args[:1]
+            if node.func.attr == "getenv":
+                target = ast.Attribute(value=target, attr="environ")
+        if isinstance(target, ast.Attribute) and target.attr == "environ":
+            found += [a.value for a in args if isinstance(a, ast.Constant)
+                      and str(a.value).startswith("REPRO_")]
+    return found
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_flags_read_through_envflags(path):
+    """No ``REPRO_*`` flag is read by name through ``os.environ``: the port
+    reads its flags through ``core/envflags.py``'s accessors."""
+    assert _environ_reads(path) == [], path.relative_to(ROOT)
+
+
+def test_environ_reads_are_found():
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        probe = Path(d) / "probe.py"
+        probe.write_text('import os\nos.environ.get("REPRO_OBS")\n'
+                         'os.environ["REPRO_OBS_DIR"]\nos.getenv("REPRO_X")\n')
+        assert _environ_reads(probe) == ["REPRO_OBS", "REPRO_OBS_DIR",
+                                         "REPRO_X"]
