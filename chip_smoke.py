@@ -144,6 +144,30 @@ printing JSON lines:
                  not asserted (a chunk routes as one group, as in the
                  reference); then olmoe's decode step split as in phase 3
                  over one profiled step, without the guard's on/off runs
+  8b. recurrent -- the recurrent and hybrid families (ROADMAP A9) at full
+                 width and depth, m2xfp weights from SEED, bf16 KV, the
+                 engine's guard on: xlstm-125m (all 12 mLSTM/sLSTM
+                 blocks, d 768) and zamba2-7b at its first 14 of 81
+                 blocks (12 Mamba2 layers and one shared attention block
+                 applied twice, d 3584; the cut and why are printed), each
+                 with 12 requests through 8 slots (RECURRENT: prompts
+                 of 16..64 and 16 new tokens, 8..16 and 8), so states
+                 are reset on reuse; #1 against its plain version at
+                 each projection shape of the first blocks (the split
+                 plan printed); serve_phase's assertions with chunks of 1
+                 (the engine forces them) and 6 #1 launches per xLSTM
+                 pair, 2 per Mamba2 layer and 7 per application of the
+                 shared block, per engine launch; the shortest request
+                 that ran in a reused slot equal, token for token, to the
+                 same prompt in a fresh engine; one decode step of layer
+                 0 of each block kind on the served caches, card against
+                 CPU (repro_torch.testing.recurrent's TOLERANCE; a slot
+                 admitted with a stale conv window, the sLSTM's h, must
+                 fall outside it) and its device time split; each
+                 model's decode step split as in phase 3 (one profiled
+                 step, its kernels only, no guard runs); each block's
+                 forward against decode at (2, 256, d), dense weights,
+                 within tests/test_recurrent.py's bounds
   9. train    -- training (ROADMAP A8) of full-width paper-llama2-7b at its
                  first 4 of 32 layers (TRAIN_LAYERS; the depth the card's
                  80 GB holds with f32 masters, m, v and gradients, 18 B a
@@ -304,6 +328,29 @@ FAMILY_MOE = [("olmoe-1b-7b", 8), ("mixtral-8x22b", 2)]
 # TRAIN_BATCH x TRAIN_SEQ tokens (two q tiles, four KV chunks a layer).
 # TRAIN_REPEAT_STEPS "none" steps run twice (bit-identical); the card-vs-CPU
 # step is (layers, batch, seq) TRAIN_CHECK.
+# The recurrent and hybrid families (ROADMAP A9) at full width and depth,
+# m2xfp weights from SEED, bf16 KV, N_SLOTS x MAX_LEN: (arch, blocks,
+# (requests, new tokens, prompt lengths)). More requests than slots, so
+# some request runs in a slot whose recurrent state admission reset.
+# zamba2-7b is cut to its first 14 blocks (RECURRENT_CUT) and its prompts
+# to 8..16 tokens from 8..32: at all 81 blocks the phase took 110.1 s of
+# its 100 s limit (a 789 ms decode step, 58 engine launches and 19 more
+# for the reused-slot request alone), and with the prompts cut, which
+# takes the launches to 40 and 16, still 122.7 s on a slower host (a
+# 1004 ms step); NVIDIA H100 80GB HBM3, 700.00 W. The width stays full;
+# 14 blocks keep both kinds of segment: the shared block applied twice,
+# after 5 Mamba2 layers each, then 2 trailing ones.
+RECURRENT_CUT = ("the phase's 100 s: at all 81 blocks the decode step "
+                 "took 0.59-1.00 s on the host, and the phase 110-123 s")
+RECURRENT = [("xlstm-125m", 12, (12, 16, (16, 64))),
+             ("zamba2-7b", 14, (12, 8, (8, 16)))]
+# full-width forward against decode (B, S) on dense bf16 blocks from SEED,
+# within tests/test_recurrent.py's bounds; one decode step of layer 0 of
+# each block kind on the card against the CPU within
+# repro_torch.testing.recurrent.TOLERANCE, the planted fault in slot
+# RECURRENT_FAULT_SLOT (repro_torch.testing.recurrent says both)
+RECURRENT_CHECK = (2, 256)
+RECURRENT_FAULT_SLOT = 3
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 2048, 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
 TRAIN_REPEAT_STEPS = 3
@@ -695,9 +742,12 @@ def gemm_kernel_names(kern) -> list:
 def decode_breakdown(eng, device, kern, steps: int = 3, guard: bool = True):
     """Wall time of an all-slots decode step (host clock, synchronized, no
     profiler), then its device time by kernel from torch.profiler over as
-    many more steps. The idle share is ``1 - device / wall`` unclipped; a
-    device time above either run's wall means events were counted twice,
-    and raises. The packed GEMM's time is that of every kernel whose name
+    many more steps, recording the device's kernels alone (the host's
+    operators are not counted, and a step of thousands of them takes
+    seconds to read back). The idle share is ``1 - device / wall``
+    unclipped; a device time above either run's wall means events were
+    counted twice, and raises, as does a profile with no device time.
+    The packed GEMM's time is that of every kernel whose name
     carries "dequant_gemm"; gemm_kernel_names checks first that ``kern``'s
     library holds no other. ``kern`` None (a codec served through its
     decode): every kernel whose name carries "gemm". ``guard``: also the
@@ -723,8 +773,7 @@ def decode_breakdown(eng, device, kern, steps: int = 3, guard: bool = True):
     run()
     wall = (time.perf_counter() - t0) / steps
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     wall_profiled = (time.perf_counter() - t0) / steps
     by_name = {}                      # device-side kernel events only
@@ -733,6 +782,8 @@ def decode_breakdown(eng, device, kern, steps: int = 3, guard: bool = True):
             by_name[ev.key] = (by_name.get(ev.key, 0.0)
                                + ev.self_device_time_total / 1e3 / steps)
     total = sum(by_name.values())
+    if total <= 0:
+        raise AssertionError("the profile holds no device time")
     gemm = sum(v for k, v in by_name.items() if tag in k.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     idle = 1 - total / (wall * 1e3)
@@ -1531,23 +1582,31 @@ def dse_check(device) -> None:
 
 def variant_gemm_check(timer, name: str, params: dict, kern, device,
                        phase: str = "variants"):
-    """``kern`` on the distinct projection shapes of layer 0 of ``params``
-    (a packed model; its 2-D packed weights, so not packed (K, E, N)
-    experts, which no kernel multiplies), x random bf16 at M = 8 and 64:
-    kernel_vs_plain, assert_rows_independent, the split plan and the event
-    time at M = 8 beside the bound, printed as ``phase`` lines. These
-    launches are not counted as the path's."""
+    """gemm_shape_check on the projections of layer 0 of ``params`` (a
+    packed attention model)."""
+    lp = params["layers"][0]
+    gemm_shape_check(timer, name, {
+        w: lp[part][w] for part, names in (
+            ("attn", ("wq", "wk", "wv", "wo")),
+            ("ffn", ("gate", "up", "down"))) for w in names},
+        kern, device, phase)
+
+
+def gemm_shape_check(timer, name: str, weights: dict, kern, device,
+                     phase: str):
+    """``kern`` on the distinct shapes of ``weights`` ({name: weight}; its
+    2-D packed ones, so not packed (K, E, N) experts, which no kernel
+    multiplies), x random bf16 at M = 8 and 64: kernel_vs_plain,
+    assert_rows_independent, the split plan and the event time at M = 8
+    beside the bound, printed as ``phase`` lines. These launches are not
+    counted as the path's."""
     from repro_torch.core.codecs import PackedTensor
     from repro_torch.kernels import _build, ref
-    lp = params["layers"][0]
     shapes = {}                  # (K, N) -> (names, the first one's streams)
-    for part, names in (("attn", ("wq", "wk", "wv", "wo")),
-                        ("ffn", ("gate", "up", "down"))):
-        for w in names:
-            if isinstance(lp[part][w], PackedTensor) \
-                    and len(lp[part][w].shape) == 2:
-                shapes.setdefault(tuple(lp[part][w].shape),
-                                  ([], lp[part][w].streams))[0].append(w)
+    for w, leaf in weights.items():
+        if isinstance(leaf, PackedTensor) and len(leaf.shape) == 2:
+            shapes.setdefault(tuple(leaf.shape),
+                              ([], leaf.streams))[0].append(w)
     gen = torch.Generator(device=device).manual_seed(SEED)
     for (k, n), (names, streams) in shapes.items():
         label = f"{name} {names} K={k} N={n}"
@@ -1886,6 +1945,218 @@ def families_phase(timer, device, kern, kernels) -> int:
             emit("families", **line)
         seconds["moe_apply_check_cpu"] = time.perf_counter() - t0
         emit("families", check="moe_seconds", model=cfg.name, **seconds)
+    return launches
+
+
+def recurrent_serve(cfg, params, traffic, device, kern, kernels):
+    """Serve ``traffic`` through the engine (guard on, chunks of 1: the
+    engine forces them for the recurrent families) with serve_phase's
+    assertions: ``kern`` launched ``gemm_launches`` times per engine
+    launch, no other kernel, the guard healthy with nothing quarantined,
+    every request complete. Then the shortest request that ran in a
+    reused slot (admitted into a slot an earlier request had held) is
+    served alone in a fresh engine and must give the same tokens. Returns
+    (engine, launches)."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.testing.recurrent import gemm_launches
+    n_requests, n_tokens, (lo, hi) = traffic
+    rng = np.random.default_rng(SEED)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in rng.choice(np.arange(lo, hi + 1), n_requests)]
+
+    def finite_greedy(logits):
+        if not np.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+        return np.argmax(logits, axis=-1)
+
+    def engine():
+        return ServeEngine(params, cfg, n_slots=N_SLOTS, max_len=MAX_LEN,
+                           prefill_chunk=CHUNK, sample_fn=finite_greedy,
+                           device=device)
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:                     # the path's counts start here
+        k.launches = 0
+    eng = engine()
+    admitted = {}                          # rid -> (slot, admit step)
+    admit = eng.scheduler.admit
+
+    def recording_admit(step):
+        reqs = admit(step)
+        admitted.update({r.rid: (r.slot, step) for r in reqs})
+        return reqs
+    eng.scheduler.admit = recording_admit
+    outs = eng.generate(prompts, n_tokens)
+    torch.cuda.synchronize()
+    launches = kern.launches
+    others = {k.name: k.launches for k in kernels if k is not kern}
+    if any(others.values()):
+        raise AssertionError(f"{cfg.name} path launched {others}")
+    expected = gemm_launches(cfg) * eng.stats.steps
+    if launches != expected:
+        raise AssertionError(
+            f"{cfg.name}: {launches} kernel launches, expected "
+            f"{gemm_launches(cfg)} x {eng.stats.steps} engine launches")
+    g = eng.guard_summary()
+    if g["state"] != "healthy" or g["quarantines"] or g["scrubs"] \
+            or g["retries"]:
+        raise AssertionError(f"{cfg.name}: the guard saw faults: {g}")
+    if len(eng.scheduler.finished) != len(prompts) or any(
+            len(o) != n_tokens for o in outs):
+        raise AssertionError(f"{cfg.name}: not every request completed")
+    peak = torch.cuda.max_memory_allocated()
+    reused = [rid for rid, (slot, step) in admitted.items()
+              if any(s == slot and st < step for s, st in admitted.values())]
+    if not reused:
+        raise AssertionError(f"{cfg.name}: no slot was reused")
+    rid = min(reused, key=lambda r: len(prompts[r]))
+    t0 = time.perf_counter()
+    alone = engine().generate([prompts[rid]], n_tokens)[0]
+    twin_s = time.perf_counter() - t0
+    if alone != outs[rid]:
+        raise AssertionError(
+            f"{cfg.name}: request {rid} in reused slot {admitted[rid][0]} "
+            f"gave {outs[rid]}, alone in a fresh engine {alone}")
+    st = eng.stats
+    emit("recurrent", check="serve", model=cfg.name, family=cfg.family,
+         blocks=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+         codec=cfg.quant_format, kv_quant=cfg.kv_quant, n_slots=N_SLOTS,
+         max_len=MAX_LEN, prefill_chunk_asked=CHUNK, engine_chunk=eng.chunk,
+         requests=len(prompts), tokens_out=st.generated_tokens,
+         prefill_tokens=st.prefill_tokens, steps=st.steps,
+         decode_tokens_per_s=st.decode_tokens_per_sec,
+         decode_step_ms=1e3 * st.decode_wall_s / max(st.decode_steps, 1),
+         wall_s=st.wall_s, mean_ttft_steps=eng.mean_ttft_steps(),
+         occupancy=st.occupancy, peak_memory_bytes=peak,
+         weight_bytes=eng.weight_bytes(), cache_bytes=eng.kv_bytes(),
+         guard=g, kernel=kern.name, launches=launches,
+         launches_expected=expected,
+         launches_per_engine_launch=gemm_launches(cfg),
+         reused_slot_request=dict(rid=rid, slot=admitted[rid][0],
+                                  prompt_len=len(prompts[rid]),
+                                  equal_to_fresh_engine=True,
+                                  fresh_engine_s=twin_s))
+    return eng, launches
+
+
+def recurrent_block_cost(cfg, kind: str, p: dict, cache: dict,
+                         x: torch.Tensor, steps: int = 3) -> dict:
+    """Device time of one decode step of a block of ``kind`` (parameters
+    ``p``, a copy of ``cache``, input ``x``) from torch.profiler over
+    ``steps`` steps, split into the packed GEMM (#1's kernels) and the
+    rest (the cell or scan, its activations' fake-quant, norms), and the
+    same times the model's blocks of that kind."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.testing.recurrent import BLOCKS
+    decode = BLOCKS[kind][3]
+    c = {k: v.clone() for k, v in cache.items()}
+    with torch.no_grad():
+        decode(p, x, cfg, c, cfg.quant)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                decode(p, x, cfg, c, cfg.quant)
+            torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) \
+                + ev.self_device_time_total / 1e3 / steps
+    total = sum(by_name.values())
+    gemm = sum(v for k, v in by_name.items() if "dequant_gemm" in k)
+    blocks = sum(1 for k in cfg.kinds if k == kind)
+    return dict(check="block_cost", model=cfg.name, block=kind,
+                slots=x.shape[0], device_ms=total, packed_gemm_ms=gemm,
+                other_device_ms=total - gemm, kernels=len(by_name),
+                blocks_of_kind=blocks, device_ms_all_blocks=total * blocks,
+                other_device_ms_all_blocks=(total - gemm) * blocks)
+
+
+def recurrent_phase(timer, device, kern, kernels) -> int:
+    """Each of RECURRENT: m2xfp weights packed on the card from SEED one
+    block at a time; #1 against its plain version at each projection shape
+    of the model's first blocks (gemm_shape_check); the serve
+    (recurrent_serve); one decode step of layer 0 of each block kind card
+    against CPU (``decode_card_vs_cpu``) on the served caches, its input
+    the normalized embeddings of seeded tokens, and its device time split
+    (recurrent_block_cost); the decode step split as in phase 3 (one
+    profiled step, the device's kernels only, no guard runs); then the
+    full-width forward-vs-decode checks (``forward_vs_decode``). Returns
+    the launches of ``kern`` in the serves."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.serve.prequant import init_packed_params
+    from repro_torch.testing.recurrent import (decode_card_vs_cpu,
+                                               forward_vs_decode)
+    launches = 0
+    for arch, blocks, traffic in RECURRENT:
+        full = get_config(arch)
+        cfg = get_config(arch, quant="serve", n_layers=blocks,
+                         block_kinds=full.kinds[:blocks])
+        if blocks < full.n_layers:
+            emit("recurrent", check="depth", model=cfg.name, blocks=blocks,
+                 of=full.n_layers, kinds=cfg.kinds, why=RECURRENT_CUT)
+        seconds = {}
+        t0 = time.perf_counter()
+        params = init_packed_params(
+            torch.Generator(device=device).manual_seed(SEED), cfg, device)
+        torch.cuda.synchronize()
+        seconds["init_and_pack"] = time.perf_counter() - t0
+        kinds = ("mlstm", "slstm") if cfg.family == "ssm" else ("mamba",)
+        weights = {f"{kind}/{k}": v for kind in kinds
+                   for k, v in params[kind][0].items()}
+        if "shared_attn" in params:
+            sa = params["shared_attn"]
+            weights.update({f"shared_attn/{part}/{w}": sa[part][w]
+                            for part in ("attn", "ffn")
+                            for w in sa[part] if w.startswith("w")
+                            or w in ("gate", "up", "down")})
+        t0 = time.perf_counter()
+        gemm_shape_check(timer, arch, weights, kern, device, "recurrent")
+        seconds["gemm_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng, n = recurrent_serve(cfg, params, traffic, device, kern, kernels)
+        seconds["serve_and_twin"] = time.perf_counter() - t0
+        launches += n
+        t0 = time.perf_counter()
+        tokens = torch.randint(0, cfg.vocab_size, (N_SLOTS, 1),
+                               generator=torch.Generator(device=device)
+                               .manual_seed(SEED), device=device)
+        h = eng.params["embed"][tokens]
+        for kind in kinds:
+            x = rms_norm(h, eng.params[f"{kind}_norm"][0], cfg.norm_eps)
+            p = eng.params[kind][0]
+            line = decode_card_vs_cpu(cfg, kind, p, _to_cpu(p),
+                                      eng.caches[kind][0], x,
+                                      RECURRENT_FAULT_SLOT)
+            emit("recurrent", check="card_vs_cpu", model=cfg.name, **line)
+            if not line["within"]:
+                raise AssertionError(f"{cfg.name} {kind}: card vs CPU "
+                                     f"{line}")
+            emit("recurrent", **recurrent_block_cost(
+                cfg, kind, eng.params[kind][0], eng.caches[kind][0], x))
+        seconds["card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decode_breakdown(eng, device, kern, steps=1, guard=False)
+        seconds["decode_breakdown"] = time.perf_counter() - t0
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        for kind in kinds:
+            line = forward_vs_decode(cfg, kind, gen, *RECURRENT_CHECK,
+                                     device=device)
+            emit("recurrent", check="forward_vs_decode", model=cfg.name,
+                 **line)
+            if not line["within"]:
+                raise AssertionError(f"{cfg.name} {kind}: forward vs "
+                                     f"decode {line}")
+        seconds["forward_vs_decode"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("recurrent", check="seconds", model=cfg.name, **seconds)
     return launches
 
 
@@ -2559,11 +2830,13 @@ def main() -> int:
     lap("families")
     gc.collect()
     torch.cuda.empty_cache()
+    recurrent_launches = recurrent_phase(timer, device, M2XFP, kernels)
+    lap("recurrent")
     train_launches = train_phase(device, M2XFP, kernels)
     summary["m2xfp_matmul"]["launches"] = (
         launches + kv_launches + guard_launches + ideal_launches
         + obs_launches + variant_launches + family_launches
-        + train_launches)
+        + recurrent_launches + train_launches)
     gc.collect()
     torch.cuda.empty_cache()
     lap("train")

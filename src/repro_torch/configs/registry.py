@@ -6,7 +6,7 @@ import importlib
 
 ARCHS = ("olmoe-1b-7b", "mixtral-8x22b", "qwen2.5-14b", "qwen2-0.5b",
          "gemma2-9b", "qwen3-8b", "musicgen-large", "pixtral-12b",
-         "paper-llama2-7b")
+         "paper-llama2-7b", "xlstm-125m", "zamba2-7b")
 
 _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
@@ -18,6 +18,8 @@ _MODULES = {
     "musicgen-large": "musicgen_large",
     "pixtral-12b": "pixtral_12b",
     "paper-llama2-7b": "paper_llama2_7b",
+    "xlstm-125m": "xlstm_125m",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

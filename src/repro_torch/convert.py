@@ -14,7 +14,10 @@ the parameter tree), and ``train_state_leaves`` /
 ``from_train_state_leaves`` carry one to and from its checkpoint leaves.
 
 Layouts: the reference stacks per-layer leaves (packed streams included) on
-axis 0 under ``layers``; the port keeps a list of per-layer dicts. bf16
+axis 0 under ``layers`` (and, for the recurrent families, under ``mlstm``,
+``mlstm_norm``, ``slstm``, ``slstm_norm``, ``mamba`` and ``mamba_norm``);
+the port keeps a list of per-block dicts (or tensors) under the same key.
+A hybrid model's ``shared_attn`` is one block in both, never stacked. bf16
 leaves arrive as ``ml_dtypes.bfloat16`` arrays or bf16 tensors and are
 carried by bit view (int16), never through a float round trip.
 """
@@ -31,6 +34,9 @@ __all__ = ["from_jax_tree", "to_tensor", "stack_layers", "flat_leaves",
            "train_state_leaves", "from_train_state_leaves"]
 
 _TREES = ("params", "err")          # a train state's parameter-shaped trees
+# the keys under which the reference stacks blocks on axis 0
+STACKED = ("layers", "mlstm", "mlstm_norm", "slstm", "slstm_norm", "mamba",
+           "mamba_norm")
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:
@@ -62,19 +68,28 @@ def _convert(node, device, layer=None):
     return to_tensor(node if layer is None else node[layer], device)
 
 
+def _n_stacked(node) -> int:
+    """The length of the stacked axis 0 of a stacked subtree."""
+    while not hasattr(node, "shape"):
+        node = next(iter((node["streams"] if _is_packed(node)
+                          else node).values()))
+    return node.shape[0]
+
+
 def from_jax_tree(tree: dict, cfg, device="cuda") -> dict:
     """Reference parameter tree (numpy leaves) -> the port's parameters on
-    ``device``."""
-    out = {k: _convert(v, device) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_convert(tree["layers"], device, i)
-                     for i in range(cfg.n_layers)]
-    return out
+    ``device``: each ``STACKED`` subtree becomes a list, one block per
+    index of its axis 0."""
+    return {k: ([_convert(v, device, i) for i in range(_n_stacked(v))]
+                if k in STACKED else _convert(v, device))
+            for k, v in tree.items()}
 
 
 def stack_layers(params: dict) -> dict:
-    """The port's parameter dict -> the reference's layout: per-layer
-    leaves stacked on axis 0 under ``layers``, packed leaves as
-    ``{"codec", "shape", "streams"}`` dicts (inverse of from_jax_tree)."""
+    """The port's parameter dict -> the reference's layout: each list of
+    blocks (``layers``, the recurrent groups) stacked on axis 0, packed
+    leaves as ``{"codec", "shape", "streams"}`` dicts (inverse of
+    from_jax_tree)."""
     def plain(node):
         if isinstance(node, PackedTensor):
             return {"codec": node.codec, "shape": node.shape,
@@ -92,9 +107,8 @@ def stack_layers(params: dict) -> dict:
             return {k: stack([n[k] for n in nodes]) for k in first}
         return torch.stack(nodes)
 
-    out = {k: plain(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = stack([plain(lp) for lp in params["layers"]])
-    return out
+    return {k: stack([plain(b) for b in v]) if isinstance(v, list)
+            else plain(v) for k, v in params.items()}
 
 
 def flat_leaves(tree: dict, prefix: str = "") -> dict:

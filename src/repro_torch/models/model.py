@@ -1,7 +1,10 @@
-"""Decoder LM of the serve and train paths (port of the attention families of
-repro.models.model -- dense, moe, audio and vlm -- with the attention
-variants: QKV bias, qk-norm, tied embeddings, sliding windows, local/global
-layers and both soft-caps).
+"""Decoder LM of the serve and train paths (port of repro.models.model):
+the attention families -- dense, moe, audio and vlm -- with the attention
+variants (QKV bias, qk-norm, tied embeddings, sliding windows, local/global
+layers and both soft-caps), the recurrent ``ssm`` family (xLSTM: mLSTM /
+sLSTM pairs, ``models/xlstm.py``) and the ``hybrid`` one (Zamba2: a Mamba2
+backbone, ``models/mamba2.py``, with one shared attention block applied
+after every ``shared_attn_every - 1`` Mamba layers).
 
 Parameters are a dict: ``embed`` (V, d) bf16, ``final_norm`` (d,) f32,
 ``lm_head`` (d, V) bf16 (absent under ``tie_embeddings``: the head is
@@ -12,9 +15,16 @@ ffn_norm, ffn}``: ``ffn`` is ``{gate, up, down}`` (an MLP), or under
 with ``input_mode="embeddings"`` (the audio and vlm families, whose
 frontends are stubs in the reference) takes its input as embeddings; it
 still draws ``embed``, as the reference's ``init_params`` does.
-The reference stacks the layers on a leading axis and scans over them; the
-port loops over the list, so each layer can be packed and freed on its own
-(``repro_torch.convert`` maps one layout to the other).
+The recurrent families have no ``layers``: an ``ssm`` model holds, per
+pair of blocks, ``mlstm`` (``xlstm.init_mlstm``), ``mlstm_norm`` (d,) f32,
+``slstm`` and ``slstm_norm``; a ``hybrid`` one ``mamba``
+(``mamba2.init_mamba2``) and ``mamba_norm`` per Mamba layer and one
+``shared_attn`` block (an attention layer's dict), whose single weight set
+every application uses.
+The reference stacks the layers (and the recurrent blocks) on a leading
+axis and scans over them; the port loops over a list, so each block can be
+packed and freed on its own (``repro_torch.convert`` maps one layout to
+the other).
 
 Entry points:
   forward(...)        logits of whole sequences (training), no caches
@@ -22,7 +32,10 @@ Entry points:
   decode_step(...)    one token per slot against the per-slot caches
   prefill_chunk(...)  up to T tokens per slot in one launch, bit-identical
                       per position to feeding them through decode_step
-The last two update the caches in place; all return f32 logits.
+                      (attention families only: a recurrent state takes
+                      one token at a time, as in the reference)
+The last two update the caches in place (a recurrent block's cache dict
+gets its new tensors); all return f32 logits.
 ``forward`` and ``loss_fn`` are differentiable (autograd) under ``quant``
 ``none`` and ``qat``; under ``serve`` they run the packed GEMMs.
 """
@@ -33,6 +46,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core.codecs import get_codec, packed_codecs
 from . import attention as attn
+from . import mamba2 as mb
+from . import xlstm as xl
 from .kvquant import kv_codec
 from .layers import init_embedding, init_mlp, mlp_apply, rms_norm, softcap
 from .moe import init_moe, moe_apply
@@ -40,25 +55,29 @@ from .numerics import dot_f32acc
 from .quant import pack_serving_weight
 
 __all__ = [
-    "init_params", "init_head", "init_layer", "init_caches", "forward",
-    "loss_fn", "decode_step", "prefill_chunk", "pack_layer_for_serving",
-    "pack_params_for_serving", "layer_windows",
+    "init_params", "init_head", "init_layer", "init_blocks", "build_params",
+    "init_caches",
+    "forward", "loss_fn", "decode_step", "prefill_chunk",
+    "pack_layer_for_serving", "pack_params_for_serving", "layer_windows",
+    "hybrid_segments", "RECURRENT",
 ]
 
-_PACK_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+# the reference's names of the GEMM weights that serving packs
+# (model.py's _PACK_KEYS; its _SKIP_KEYS -- router, conv, A_log, D,
+# dt_bias, norms, b_if, w_if, r, b, gn, embed, lm_head -- are not in it)
+_PACK_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down", "in_proj",
+              "out_proj", "w", "ff_up", "ff_down", "w_o")
+# the per-head block-diagonal cell projections of an mLSTM stay bf16
+_MLSTM_DENSE = ("wq", "wk", "wv")
+# cache (and parameter) groups that hold recurrent state
+RECURRENT = ("mlstm", "slstm", "mamba")
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for the families the port has not
-    taken yet (the recurrent ``ssm`` and ``hybrid``), and ``ValueError`` for
-    a served ``quant_format`` with no packed path (naming
-    ``packed_codecs()``) or a ``kv_quant`` codec with no packed KV path
-    (naming ``kv_codecs()``), in the reference's words."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the torch port serves the attention families "
-            f"(dense, moe, audio, vlm) only; not ported yet: "
-            f"family={cfg.family!r}")
+    """Raise ``ValueError`` for a served ``quant_format`` with no packed
+    path (naming ``packed_codecs()``) or a ``kv_quant`` codec with no
+    packed KV path (naming ``kv_codecs()``), in the reference's words.
+    Every family of the reference is served."""
     if cfg.quant == "serve" and not get_codec(cfg.quant_format).packed:
         raise ValueError(
             f"cfg.quant_format={cfg.quant_format!r} has no packed serving "
@@ -97,13 +116,63 @@ def init_layer(gen: torch.Generator, cfg, device="cuda") -> dict:
     }
 
 
+def _n_mamba(cfg) -> int:
+    """Mamba layers of a hybrid model: its ``mamba`` kinds (the
+    reference's count)."""
+    return sum(1 for k in cfg.kinds if k == "mamba")
+
+
+def init_blocks(gen: torch.Generator, cfg, device="cuda"):
+    """(group, block) in draw order, after the head: ("layers", layer)
+    per attention layer; per xLSTM pair ("mlstm", ...), ("mlstm_norm",
+    (d,) ones), ("slstm", ...), ("slstm_norm", ...); per Mamba layer
+    ("mamba", ...), ("mamba_norm", ...), then ("shared_attn", layer)
+    once."""
+    def ones():
+        return torch.ones(cfg.d_model, dtype=torch.float32, device=device)
+    if cfg.family == "ssm":
+        for _ in range(cfg.n_layers // 2):
+            yield "mlstm", xl.init_mlstm(gen, cfg, device)
+            yield "mlstm_norm", ones()
+            yield "slstm", xl.init_slstm(gen, cfg, device)
+            yield "slstm_norm", ones()
+    elif cfg.family == "hybrid":
+        for _ in range(_n_mamba(cfg)):
+            yield "mamba", mb.init_mamba2(gen, cfg, device)
+            yield "mamba_norm", ones()
+        yield "shared_attn", init_layer(gen, cfg, device)
+    else:
+        for _ in range(cfg.n_layers):
+            yield "layers", init_layer(gen, cfg, device)
+
+
+# the groups of blocks that the reference stacks, per family
+_GROUPS = {"ssm": ("mlstm", "mlstm_norm", "slstm", "slstm_norm"),
+           "hybrid": ("mamba", "mamba_norm")}
+
+
+def build_params(gen: torch.Generator, cfg, device="cuda",
+                 convert=None) -> dict:
+    """The head, then each of ``init_blocks``' blocks passed through
+    ``convert(group, block)`` (default: kept as drawn) into its place: its
+    group's list (empty lists for a model of no blocks), or
+    ``shared_attn`` itself."""
+    params = init_head(gen, cfg, device)
+    params.update({g: [] for g in _GROUPS.get(cfg.family, ("layers",))})
+    for group, block in init_blocks(gen, cfg, device):
+        if convert is not None:
+            block = convert(group, block)
+        if group == "shared_attn":
+            params[group] = block
+        else:
+            params[group].append(block)
+    return params
+
+
 def init_params(gen: torch.Generator, cfg, device="cuda") -> dict:
     """Random dense bf16 parameters drawn from ``gen`` (a generator on
     ``device``). The draws differ from the reference's ``jax.random``."""
-    params = init_head(gen, cfg, device)
-    params["layers"] = [init_layer(gen, cfg, device)
-                        for _ in range(cfg.n_layers)]
-    return params
+    return build_params(gen, cfg, device)
 
 
 def layer_windows(cfg) -> list:
@@ -117,12 +186,39 @@ def layer_windows(cfg) -> list:
     return [cfg.sliding_window or 0] * cfg.n_layers
 
 
+def hybrid_segments(cfg) -> tuple:
+    """Zamba2's layout: every ``shared_attn_every``-th block is the shared
+    attention block. Returns (applications of it, Mamba layers before each,
+    trailing Mamba layers)."""
+    every = cfg.shared_attn_every
+    n_attn = cfg.n_layers // every
+    seg = every - 1
+    trailing = cfg.n_layers - n_attn - n_attn * seg
+    return n_attn, seg, trailing
+
+
 def init_caches(cfg, batch: int, max_len: int, device="cuda") -> dict:
-    """Per-slot KV caches of every layer (``attention.init_cache``), each a
-    ring of ``min(window, max_len)`` positions for its layer's window:
-    bf16, or packed in ``cfg.kv_quant``. The reference's local/global
-    stacks are this list's even and odd layers."""
+    """Per-slot caches, the slot on axis 0 of every tensor. Attention
+    families: the KV cache of every layer (``attention.init_cache``), each
+    a ring of ``min(window, max_len)`` positions for its layer's window:
+    bf16, or packed in ``cfg.kv_quant``; the reference's local/global
+    stacks are this list's even and odd layers. ``ssm``: {"mlstm": [...],
+    "slstm": [...]}, a recurrent state per pair. ``hybrid``: {"mamba":
+    [...] per Mamba layer, "attn": [...] a global KV cache per
+    application of the shared block}."""
     check_supported(cfg)
+    if cfg.family == "ssm":
+        n_pairs = cfg.n_layers // 2
+        return {"mlstm": [xl.init_mlstm_cache(cfg, batch, device)
+                          for _ in range(n_pairs)],
+                "slstm": [xl.init_slstm_cache(cfg, batch, device)
+                          for _ in range(n_pairs)]}
+    if cfg.family == "hybrid":
+        n_seg, seg, trailing = hybrid_segments(cfg)
+        return {"mamba": [mb.init_mamba2_cache(cfg, batch, device)
+                          for _ in range(n_seg * seg + trailing)],
+                "attn": [attn.init_cache(cfg, batch, max_len, 0, device)
+                         for _ in range(n_seg)]}
     return {"layers": [attn.init_cache(cfg, batch, max_len, w, device)
                        for w in layer_windows(cfg)]}
 
@@ -184,6 +280,58 @@ def _attn_block_forward(lp, h, cfg, positions, window: int):
     return _ffn(lp, h + out, cfg), kv
 
 
+def _attn_block_decode(lp, h, cfg, cache, index, window: int):
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    h = h + attn.attention_decode(lp["attn"], x, cfg, cache, index,
+                                  cfg.quant, window)
+    return _ffn(lp, h, cfg)
+
+
+def _remat(cfg, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward under
+    ``cfg.remat`` (the reference's default policy: only the inputs are
+    kept)."""
+    if cfg.remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _block(forward_fn, p, norm, h, cfg):
+    """Pre-norm residual recurrent block: h + block(rms_norm(h))."""
+    out, _ = forward_fn(p, rms_norm(h, norm, cfg.norm_eps), cfg, cfg.quant)
+    return h + out
+
+
+def _pair_forward(pm, pnm, ps, pns, h, cfg):
+    h = _block(xl.mlstm_forward, pm, pnm, h, cfg)
+    return _block(xl.slstm_forward, ps, pns, h, cfg)
+
+
+def _ssm_forward(params, cfg, h):
+    for pm, pnm, ps, pns in zip(params["mlstm"], params["mlstm_norm"],
+                                params["slstm"], params["slstm_norm"]):
+        h = _remat(cfg, _pair_forward, pm, pnm, ps, pns, h, cfg)
+    return h
+
+
+def _application_after(cfg, i: int):
+    """The application of the shared attention block (the index of its KV
+    cache) that follows Mamba layer ``i``, or None."""
+    n_seg, seg, _ = hybrid_segments(cfg)
+    return i // seg if i < n_seg * seg and i % seg == seg - 1 else None
+
+
+def _hybrid_forward(params, cfg, h, positions):
+    sa = params["shared_attn"]
+    for i, (pm, pn) in enumerate(zip(params["mamba"], params["mamba_norm"])):
+        h = _remat(cfg, _block, mb.mamba2_forward, pm, pn, h, cfg)
+        if _application_after(cfg, i) is not None:
+            h = _remat(cfg, _attn_block_forward, sa, h, cfg, positions,
+                       0)[0]
+    return h
+
+
 def forward(params: dict, cfg, batch: dict, collect_cache: bool = False):
     """Logits of whole sequences (training; the reference's ``forward``
     for the attention families). batch: {"tokens": (B, S)} or
@@ -191,21 +339,25 @@ def forward(params: dict, cfg, batch: dict, collect_cache: bool = False):
     Returns f32 logits (B, S, V); with ``collect_cache`` also each layer's
     (k, v), (B, S, nkv, hd). Under ``cfg.remat`` each layer's activations
     are recomputed in the backward (``torch.utils.checkpoint``, the
-    reference's default policy: only the layers' inputs are kept)."""
+    reference's default policy: only the layers' inputs are kept). The
+    recurrent families return the logits alone (no KV cache), as the
+    reference does, and take a sequence of at most 128 positions or a
+    multiple of 128 (``ValueError`` otherwise)."""
     check_supported(cfg)
     h = _embed_in(params, cfg, batch)
     b, s = h.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=h.device).expand(b, s)
+    if cfg.family == "ssm":
+        return _logits(params, cfg, _ssm_forward(params, cfg, h))
+    if cfg.family == "hybrid":
+        return _logits(params, cfg,
+                       _hybrid_forward(params, cfg, h, positions))
     kvs = []
     for lp, window in zip(params["layers"], layer_windows(cfg)):
-        if cfg.remat:
-            h, kv = torch.utils.checkpoint.checkpoint(
-                _attn_block_forward, lp, h, cfg, positions, window,
-                use_reentrant=False)
-        else:
-            h, kv = _attn_block_forward(lp, h, cfg, positions, window)
+        h, kv = _remat(cfg, _attn_block_forward, lp, h, cfg, positions,
+                       window)
         if collect_cache:
             kvs.append(kv)
     logits = _logits(params, cfg, h)
@@ -237,13 +389,47 @@ def decode_step(params: dict, cfg, batch: dict, caches: dict,
     absolute position of each slot's token. Updates ``caches`` in place and
     returns f32 logits (B, 1, V)."""
     h = _embed_in(params, cfg, batch)
-    for lp, cache, window in zip(params["layers"], caches["layers"],
-                                 layer_windows(cfg)):
-        x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        h = h + attn.attention_decode(lp["attn"], x, cfg, cache, index,
-                                      cfg.quant, window)
-        h = _ffn(lp, h, cfg)
+    if cfg.family == "ssm":
+        h = _ssm_decode(params, cfg, h, caches)
+    elif cfg.family == "hybrid":
+        h = _hybrid_decode(params, cfg, h, caches, index)
+    else:
+        for lp, cache, window in zip(params["layers"], caches["layers"],
+                                     layer_windows(cfg)):
+            h = _attn_block_decode(lp, h, cfg, cache, index, window)
     return _logits(params, cfg, h)
+
+
+def _block_decode(decode_fn, p, norm, h, cfg, cache):
+    """Pre-norm residual recurrent block, one token; ``cache`` (a dict)
+    takes the new state."""
+    out, new = decode_fn(p, rms_norm(h, norm, cfg.norm_eps), cfg, cache,
+                         cfg.quant)
+    cache.update(new)
+    return h + out
+
+
+def _ssm_decode(params, cfg, h, caches):
+    for pm, pnm, ps, pns, cm, cs in zip(
+            params["mlstm"], params["mlstm_norm"], params["slstm"],
+            params["slstm_norm"], caches["mlstm"], caches["slstm"]):
+        h = _block_decode(xl.mlstm_decode, pm, pnm, h, cfg, cm)
+        h = _block_decode(xl.slstm_decode, ps, pns, h, cfg, cs)
+    return h
+
+
+def _hybrid_decode(params, cfg, h, caches, index):
+    """The Mamba layers in order with their caches, the shared block after
+    each segment (its own KV cache per application), then the trailing
+    Mamba layers."""
+    sa = params["shared_attn"]
+    mamba = zip(params["mamba"], params["mamba_norm"], caches["mamba"])
+    for i, (pm, pn, c) in enumerate(mamba):
+        h = _block_decode(mb.mamba2_decode, pm, pn, h, cfg, c)
+        a = _application_after(cfg, i)
+        if a is not None:
+            h = _attn_block_decode(sa, h, cfg, caches["attn"][a], index, 0)
+    return h
 
 
 def prefill_chunk(params: dict, cfg, batch: dict, caches: dict,
@@ -257,7 +443,15 @@ def prefill_chunk(params: dict, cfg, batch: dict, caches: dict,
     discard -- except under ``cfg.is_moe``, as in the reference: the
     experts route the chunk's B*T tokens (its padding included) as one
     group, whose capacity differs from that of the B tokens of a decode
-    step, so a chunk of T > 1 may drop other tokens than decode does."""
+    step, so a chunk of T > 1 may drop other tokens than decode does.
+
+    The recurrent families raise ``NotImplementedError``, as the
+    reference does: their state takes one token at a time (the engine
+    runs them with chunks of 1)."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"chunked prefill needs attention caches; family "
+            f"{cfg.family!r} decodes one token at a time")
     h = _embed_in(params, cfg, batch)
     for lp, cache, window in zip(params["layers"], caches["layers"],
                                  layer_windows(cfg)):
@@ -272,18 +466,22 @@ def prefill_chunk(params: dict, cfg, batch: dict, caches: dict,
 # Serving: pack every GEMM weight
 # ---------------------------------------------------------------------------
 
-def pack_layer_for_serving(layer: dict, fmt: str) -> dict:
-    """One dense layer -> the same layer with every GEMM weight packed in
-    codec ``fmt``, by the reference's rule: an expert weight (E, K, N) is
-    laid out contraction first, (K, E, N), and then, like a (K, N) weight,
-    packed only if its second-to-last axis is a multiple of 32 -- for an
-    expert weight that axis is E, so experts of a model with E % 32 != 0
-    stay dense (E, K, N) bf16. The router, norms and biases stay as they
-    are."""
+def pack_layer_for_serving(layer, fmt: str, group: str = "layers"):
+    """One dense block of ``group`` (an attention layer, an mLSTM, sLSTM or
+    Mamba2 block, a norm) -> the same block with every GEMM weight packed
+    in codec ``fmt``, by the reference's rule: a weight named in
+    ``_PACK_KEYS`` is packed if its second-to-last axis is a multiple of
+    32; an expert weight (E, K, N) is laid out contraction first, (K, E,
+    N), before that test -- for an expert weight the axis is E, so experts
+    of a model with E % 32 != 0 stay dense (E, K, N) bf16. The router,
+    norms, biases and recurrence parameters stay as they are, and so do
+    an mLSTM's per-head ``wq``, ``wk`` and ``wv``."""
+    keep = _MLSTM_DENSE if group == "mlstm" else ()
+
     def convert(name, leaf):
         if isinstance(leaf, dict):
             return {k: convert(k, v) for k, v in leaf.items()}
-        if name not in _PACK_KEYS or leaf.dim() < 2:
+        if name not in _PACK_KEYS or name in keep or leaf.dim() < 2:
             return leaf
         # experts (E, K, N) -> contraction first (K, E, N), a view
         w = leaf.permute(1, 0, 2) if leaf.dim() == 3 else leaf
@@ -295,8 +493,16 @@ def pack_layer_for_serving(layer: dict, fmt: str) -> dict:
 
 def pack_params_for_serving(params: dict, cfg) -> dict:
     """Dense params -> packed streams of ``cfg.quant_format`` for every
-    GEMM weight; embedding, LM head, norms and biases stay as they are."""
-    out = {k: v for k, v in params.items() if k != "layers"}
-    out["layers"] = [pack_layer_for_serving(lp, cfg.quant_format)
-                     for lp in params["layers"]]
+    GEMM weight, block by block (``shared_attn`` once); embedding, LM
+    head, norms and biases stay as they are."""
+    fmt = cfg.quant_format
+    out = {}
+    for group, node in params.items():
+        if isinstance(node, list):
+            out[group] = [pack_layer_for_serving(b, fmt, group)
+                          for b in node]
+        elif isinstance(node, dict):
+            out[group] = pack_layer_for_serving(node, fmt, group)
+        else:
+            out[group] = node
     return out

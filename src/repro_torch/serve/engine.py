@@ -46,7 +46,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core.codecs import PackedTensor, packed_leaves, \
     validate_packed
-from repro_torch.models.model import decode_step, init_caches, prefill_chunk
+from repro_torch.models.model import RECURRENT, decode_step, init_caches, \
+    prefill_chunk
 from repro_torch.models.quant import traced_once
 from repro_torch.obs import quant_health
 from . import guard as _guard
@@ -134,19 +135,25 @@ def _greedy(logits: np.ndarray) -> np.ndarray:
 
 def _reset_slot(caches: dict, slot: int, scrub: bool = False) -> None:
     """Put one slot's rows of every layer's cache back in their init state,
-    in place. An admit-time reset writes only the position track: -1 masks
-    every stale K/V entry. ``scrub=True`` (quarantine) also zeroes the
-    slot's bf16 pages or every packed stream: a poisoned page (NaN, scale
-    byte 255) would trip the KV sentinel every later step if left masked
-    but resident, and zero is every page stream's init state."""
-    for layer in caches["layers"]:
-        for name, leaf in layer.items():
-            if name == "pos":
-                leaf[slot] = -1
-            elif scrub:
-                for t in (leaf.values() if isinstance(leaf, dict)
-                          else (leaf,)):
-                    t[slot] = 0
+    in place. An admit-time reset writes the position track (-1 masks
+    every stale K/V entry) and every recurrent state (``mlstm``, ``slstm``,
+    ``mamba``: the running log-max ``m`` to -1e30, the rest to 0), as the
+    reference does. ``scrub=True`` (quarantine) also zeroes the slot's
+    bf16 pages or every packed stream: a poisoned page (NaN, scale byte
+    255) would trip the KV sentinel every later step if left masked but
+    resident, and zero is every page stream's init state."""
+    for group, blocks in caches.items():
+        recurrent = group in RECURRENT
+        for block in blocks:
+            for name, leaf in block.items():
+                if name == "pos":
+                    leaf[slot] = -1
+                elif recurrent:
+                    leaf[slot] = -1e30 if name == "m" else 0.0
+                elif scrub:
+                    for t in (leaf.values() if isinstance(leaf, dict)
+                              else (leaf,)):
+                        t[slot] = 0
 
 
 def _launches(cfg, n_slots: int, nan_checks: bool, kv_checks: bool):
@@ -187,7 +194,9 @@ class ServeEngine:
     n_slots : batch width = concurrently served requests.
     max_len : cache capacity per slot (prompt + generated tokens).
     sample_fn : (B, V) f32 numpy logits -> (B,) token ids; greedy default.
-    prefill_chunk : max prompt tokens a slot consumes per step.
+    prefill_chunk : max prompt tokens a slot consumes per step; 1 for the
+        recurrent ``ssm`` and ``hybrid`` families whatever is asked, as in
+        the reference (their state takes one token at a time).
     prefill_budget : cap on prefill tokens per step across slots (None =
         unlimited); the oldest prefilling request always progresses.
     guard : ``GuardConfig``; None (default) = guard on with default knobs
@@ -226,6 +235,8 @@ class ServeEngine:
         self.max_len = max_len
         self.sample_fn = sample_fn or _greedy
         self.chunk = max(1, int(prefill_chunk))
+        if cfg.family in ("ssm", "hybrid"):
+            self.chunk = 1           # recurrent state updates token by token
         self.prefill_budget = prefill_budget
         self.device = torch.device(device)
         if guard is False:

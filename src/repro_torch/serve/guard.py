@@ -156,21 +156,24 @@ def probe_kv(caches: dict, n_slots: int) -> torch.Tensor:
     """Per-slot poison count over the cache pool, as (n_slots,) int32 on
     the caches' device. Call on the caches after the launch wrote them.
 
-    The port's caches are one dict per layer with the slot on axis 0.
-    Counted: non-finite values in float pages, and the reserved byte 255
-    in packed ``scales`` streams (codes and meta bytes are all legal, and
-    the integer ``pos`` tracks are skipped)."""
+    The port's caches are lists of per-layer dicts (``layers``; for the
+    recurrent families ``mlstm``/``slstm`` or ``mamba``/``attn``) with the
+    slot on axis 0. Counted: non-finite values in float pages and
+    recurrent states (an empty mLSTM/sLSTM log-max of -1e30 is finite),
+    and the reserved byte 255 in packed ``scales`` streams (codes and meta
+    bytes are all legal, and the integer ``pos`` tracks are skipped)."""
     counts = []
-    for layer in caches["layers"]:
-        for name, leaf in layer.items():
-            if name == "pos":
-                continue
-            for stream, t in _page_tensors(leaf):
-                flat = t.reshape(n_slots, -1)
-                if t.dtype.is_floating_point:
-                    counts.append((~torch.isfinite(flat)).sum(-1))
-                elif t.dtype == torch.uint8 and stream == "scales":
-                    counts.append((flat == _POISON_SCALE_BYTE).sum(-1))
+    for blocks in caches.values():
+        for layer in blocks:
+            for name, leaf in layer.items():
+                if name == "pos":
+                    continue
+                for stream, t in _page_tensors(leaf):
+                    flat = t.reshape(n_slots, -1)
+                    if t.dtype.is_floating_point:
+                        counts.append((~torch.isfinite(flat)).sum(-1))
+                    elif t.dtype == torch.uint8 and stream == "scales":
+                        counts.append((flat == _POISON_SCALE_BYTE).sum(-1))
     return torch.stack(counts).sum(0).to(torch.int32)
 
 

@@ -58,16 +58,15 @@ def prequantize_params(params: dict, cfg) -> dict:
 
 
 def init_packed_params(gen: torch.Generator, cfg, device="cuda") -> dict:
-    """``prequantize_params(init_params(gen, cfg, device), cfg)`` one layer
-    at a time: the same draws and the same bytes, with at most one dense
-    layer on the device at once (a full-width model's dense weights need
-    not fit beside its packed ones)."""
-    params = _model.init_head(gen, cfg, device)
-    params["layers"] = [
-        _model.pack_layer_for_serving(_model.init_layer(gen, cfg, device),
-                                      cfg.quant_format)
-        for _ in range(cfg.n_layers)]
-    return params
+    """``prequantize_params(init_params(gen, cfg, device), cfg)`` one block
+    at a time (``models.model.init_blocks``: an attention layer, a
+    recurrent block, the hybrid's shared attention block): the same draws
+    and the same bytes, with at most one dense block on the device at once
+    (a full-width model's dense weights need not fit beside its packed
+    ones)."""
+    return _model.build_params(
+        gen, cfg, device, lambda group, block: _model.pack_layer_for_serving(
+            block, cfg.quant_format, group))
 
 
 def packed_template(cfg) -> dict:

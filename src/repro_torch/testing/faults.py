@@ -95,17 +95,20 @@ def chaos_plan(seed: int, n_slots: int, first_step: int = 2,
 
 def _layer0_leaves(caches):
     """[(reference key, layer 0's tensor)] of the port's caches, in the
-    order the reference flattens its layer-stacked caches (keys sorted);
-    each tensor has the slot on axis 0 where the reference's has the layer
-    on axis 0 and the slot on axis 1."""
+    order the reference flattens its layer-stacked caches (keys sorted at
+    every level: ``attn/...`` before ``mamba/...``, ``mlstm/C`` before
+    ``mlstm/conv``); each tensor has the slot on axis 0 where the
+    reference's has the layer on axis 0 and the slot on axis 1."""
     out = []
-    layer = caches["layers"][0]
-    for name in sorted(layer):
-        leaf = layer[name]
-        if isinstance(leaf, dict):
-            out += [(f"layers/{name}/{s}", leaf[s]) for s in sorted(leaf)]
-        else:
-            out.append((f"layers/{name}", leaf))
+    for group in sorted(caches):
+        layer = caches[group][0]
+        for name in sorted(layer):
+            leaf = layer[name]
+            if isinstance(leaf, dict):
+                out += [(f"{group}/{name}/{s}", leaf[s])
+                        for s in sorted(leaf)]
+            else:
+                out.append((f"{group}/{name}", leaf))
     return out
 
 
@@ -135,9 +138,13 @@ def poison_kv_scale(caches, slot: int) -> str:
 
 def poison_kv_nan(caches, slot: int) -> str:
     """NaN one entry of the first float K/V page (bf16 KV caches) in
-    ``slot``'s row (layer 0, K). Returns the leaf path (``layers/k``)."""
+    ``slot``'s row (layer 0, K). Returns the leaf path (``layers/k``, or
+    ``attn/k`` for a hybrid model). Recurrent states are not pages: an
+    ``ssm`` model has none, and raises ``ValueError`` as the reference
+    does."""
     return _poison(caches, slot,
-                   lambda k, t: t.dtype.is_floating_point and t.ndim >= 2,
+                   lambda k, t: t.dtype.is_floating_point and t.ndim >= 2
+                   and not any(g in k for g in ("mlstm", "slstm", "mamba")),
                    float("nan"))
 
 

@@ -14,7 +14,11 @@ train step deterministic and resumed bit for bit from a checkpoint,
 ``loss_fn`` under serve through the m2xfp kernel at M = 4096), and
 telemetry and the design-space study (the health probes and the weight
 sweep against the CPU, the decode launch's kernels with telemetry off and
-with its host-only pillars, the ten strategies against the CPU).
+with its host-only pillars, the ten strategies against the CPU), and the
+recurrent and hybrid families (slice 14: one decode step of each block
+kind at full width against the CPU, the engine on the xLSTM and Zamba2
+smoke models against the CPU's, the blocks' forward against decode at full
+width, kernel #1 at zamba2-7b's projection shapes).
 Each
 decides inside its body whether there is a CUDA device and skips without
 one. This file imports no JAX, so it also runs where only the port is
@@ -986,15 +990,17 @@ def _card_cfg(**kw):
                        vocab_size=512, quant="serve", **kw)
 
 
-def _check_engine_card_matches_cpu(cfg, params, last_tol: float):
+def _check_engine_card_matches_cpu(cfg, params, last_tol: float,
+                                   vocab: int = 512):
     """The engine on the CPU and on the card (``params`` copied there), 6
     requests through 4 slots with pages of 32 positions and chunks of 4,
     the card's run fed the CPU run's tokens: the same tokens, and the
     logits of the first launch within 2e-3 of the CPU's and of the last
-    within ``last_tol`` (|logits| < 4). Returns the card's engine."""
+    within ``last_tol`` (|logits| < 4). Prompt tokens are drawn below
+    ``vocab``. Returns the card's engine."""
     from repro_torch.serve.engine import ServeEngine
     rng = np.random.default_rng(15)
-    prompts = [list(map(int, rng.integers(0, 512, n)))
+    prompts = [list(map(int, rng.integers(0, vocab, n)))
                for n in (5, 9, 3, 12, 7, 4)]
     cpu_logits, cpu_tokens = [], []
 
@@ -1499,3 +1505,107 @@ def test_cuda_dse_equals_cpu():
             assert e_got == e_want
             assert torch.equal(got.cpu().view(torch.int32),
                                want.view(torch.int32)), (name, sg)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent and hybrid families
+# ---------------------------------------------------------------------------
+
+# zamba2-7b's Mamba2 projections: in_proj (N % 128 = 112), out_proj
+ZAMBA2_SHAPES = [(3584, 14576), (7168, 3584)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", ZAMBA2_SHAPES)
+def test_cuda_kernel_vs_plain_zamba2_shapes(k, n):
+    """Kernel #1 at zamba2-7b's two Mamba2 projection shapes, at M 1, 8
+    and 17 (a decode step's rows and a ragged tile): within
+    test_cuda_kernel_vs_plain's bound of its plain version, rows equal to
+    those of M = 17, two calls the same bits."""
+    _need_cuda()
+    pack, gemm, plain, decode, kern = CODECS["m2xfp"]
+    gen = torch.Generator("cuda").manual_seed(3)
+    wp = pack(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+    x = torch.randn(17, k, generator=gen, device="cuda").to(torch.bfloat16)
+    wabs = decode(wp).abs()
+    full = gemm(x, wp)
+    for m in (1, 8, 17):
+        xm = x[:m].contiguous()
+        before = kern.launches
+        got = gemm(xm, wp)
+        assert kern.launches == before + 1
+        bound = k ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(xm.abs(), wabs)
+        assert bool(((got - plain(xm, wp)).abs() <= bound).all()), m
+        assert torch.equal(got, full[:m]), m
+        assert torch.equal(gemm(xm, wp), got), m
+
+
+def _recurrent_cfg(kind, width="full"):
+    from repro_torch import configs
+    arch = "zamba2-7b" if kind == "mamba" else "xlstm-125m"
+    get = configs.get_config if width == "full" else configs.smoke_config
+    return get(arch, quant="serve")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mlstm", "slstm", "mamba"])
+def test_cuda_recurrent_decode_matches_cpu_full_width(kind):
+    """One decode step of a full-width block (xlstm-125m's mLSTM and sLSTM,
+    zamba2-7b's Mamba2; m2xfp-packed from a seed) for 8 slots whose states
+    come from 6 earlier steps, on the card against the CPU within
+    repro_torch.testing.recurrent's TOLERANCE; slot 3 reset as admission
+    resets it, and with its conv window (sLSTM: h) left stale the output
+    falls outside the bound."""
+    _need_cuda()
+    from repro_torch.models.model import pack_layer_for_serving
+    from repro_torch.testing.recurrent import BLOCKS, decode_card_vs_cpu
+    cfg = _recurrent_cfg(kind)
+    init, _, init_cache, decode = BLOCKS[kind]
+    gen = torch.Generator("cuda").manual_seed(4)
+    p = pack_layer_for_serving(init(gen, cfg, "cuda"), "m2xfp", kind)
+    cache = init_cache(cfg, 8, "cuda")
+    with torch.no_grad():
+        for _ in range(6):
+            x = torch.randn(8, 1, cfg.d_model, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            _, cache = decode(p, x, cfg, cache, cfg.quant)
+    x = torch.randn(8, 1, cfg.d_model, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    line = decode_card_vs_cpu(cfg, kind, p, _to_cpu(p), cache, x, 3)
+    assert line["within"], line
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mlstm", "slstm", "mamba"])
+def test_recurrent_forward_equals_decode_full_width(kind):
+    """tests/test_recurrent.py's properties at full width on the card:
+    each block's forward on (2, 256, d) against 256 decode steps, within
+    the reference's bounds (repro_torch.testing.recurrent)."""
+    _need_cuda()
+    from repro_torch.testing.recurrent import forward_vs_decode
+    line = forward_vs_decode(_recurrent_cfg(kind), kind,
+                             torch.Generator("cuda").manual_seed(5), 2, 256)
+    assert line["within"], line
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b"])
+def test_cuda_engine_recurrent_match_cpu(arch):
+    """test_cuda_engine_codecs_match_cpu's comparison on the recurrent
+    smoke models (the engine runs chunks of 1 for them; 6 requests through
+    4 slots, so slots are reused and their state reset): the card's engine
+    fed the CPU run's tokens gives logits within 2e-3 of the CPU's at the
+    first and the last launch; kernel #1 runs 6 times per xLSTM pair and
+    per launch, or 2 per Mamba2 layer and 7 per application of the shared
+    block."""
+    _need_cuda()
+    from repro_torch.configs import smoke_config
+    from repro_torch.serve.prequant import init_packed_params
+    from repro_torch.testing.recurrent import gemm_launches
+    cfg = smoke_config(arch, quant="serve")
+    params = init_packed_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    M2XFP_KERNEL.launches = 0
+    card = _check_engine_card_matches_cpu(cfg, params, 2e-3,
+                                          cfg.vocab_size)
+    assert card.chunk == 1
+    assert M2XFP_KERNEL.launches == gemm_launches(cfg) * card.stats.steps

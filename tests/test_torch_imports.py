@@ -43,7 +43,9 @@ def test_every_port_module_is_scanned():
             "distributed/straggler.py", "train/optimizer.py",
             "train/compression.py", "train/trainer.py", "core/envflags.py",
             "core/dse.py", "obs/__init__.py", "obs/registry.py",
-            "obs/tracing.py", "obs/quant_health.py"} <= names
+            "obs/tracing.py", "obs/quant_health.py", "models/xlstm.py",
+            "models/mamba2.py", "configs/xlstm_125m.py",
+            "configs/zamba2_7b.py"} <= names
 
 
 def _environ_reads(path: Path) -> list:

@@ -346,15 +346,27 @@ def test_configs_are_the_references(arch):
 
 
 def test_check_supported_rejects_only_the_recurrent_families():
-    """Every attention family passes, with experts and embedding input;
-    ssm and hybrid raise naming the family."""
+    """Every family passes: the attention families, with experts and
+    embedding input, and since the recurrent ones are ported (ROADMAP A9)
+    ssm and hybrid too (tests/test_torch_recurrent.py serves them). What
+    it still rejects is a configuration no package serves: a served codec
+    without a packed path and a KV codec without a packed KV path, each
+    raising ValueError naming the codecs that have one."""
+    from repro_torch import configs
+    from repro_torch.core.codecs import kv_codecs, list_codecs, \
+        packed_codecs
     from repro_torch.models.model import check_supported
     for case in CASES:
         check_supported(port_cfg(case))
-    for family in ("ssm", "hybrid"):
-        cfg = dataclasses.replace(port_cfg("olmoe-smoke"), family=family)
-        with pytest.raises(NotImplementedError, match=f"family='{family}'"):
-            check_supported(cfg)
+    for arch in ("xlstm-125m", "zamba2-7b"):
+        check_supported(configs.smoke_config(arch, quant="serve"))
+    base = port_cfg("olmoe-smoke")
+    unpacked = next(c for c in list_codecs() if c not in packed_codecs())
+    with pytest.raises(ValueError, match="packable codecs"):
+        check_supported(dataclasses.replace(base, quant_format=unpacked))
+    no_kv = next(c for c in list_codecs() if c not in kv_codecs())
+    with pytest.raises(ValueError, match="KV-capable codecs"):
+        check_supported(dataclasses.replace(base, kv_quant=no_kv))
 
 
 def test_experts_packed_only_when_e_is_a_multiple_of_32(reference):

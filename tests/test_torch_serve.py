@@ -346,21 +346,42 @@ def test_submit_rejects_overlong_and_empty_requests(reference):
     eng.submit([1] * 10, max_new_tokens=6)          # exactly fits
 
 
+# the recurrent families' smoke configs (BASE has no Mamba state width and
+# no shared-block period)
+_RECURRENT_ARCH = {"ssm": "xlstm-125m", "hybrid": "zamba2-7b"}
+
+
 @pytest.mark.parametrize("overrides,named", [
-    ({"family": "ssm"}, "family='ssm'"),
-    ({"family": "hybrid"}, "family='hybrid'"),
+    pytest.param({"family": "ssm"}, "family 'ssm'",
+                 id="overrides0-family='ssm'"),
+    pytest.param({"family": "hybrid"}, "family 'hybrid'",
+                 id="overrides1-family='hybrid'"),
     ({"input_mode": "embeddings"}, "input_mode='embeddings'"),
 ])
 def test_unsupported_config_raises(overrides, named):
-    """Every feature the port still rejects raises, naming it: the
-    recurrent families at init, embedding input at the engine's
-    construction (the model takes it: tests/test_torch_moe.py)."""
-    from repro_torch.models.model import init_params
+    """Every feature the port still refuses raises NotImplementedError,
+    naming it: chunked prefill for the recurrent families (the reference's
+    message; their engine builds and runs chunks of 1, as the reference's
+    does), embedding input at the engine's construction (the model takes
+    it: tests/test_torch_moe.py)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import init_params, prefill_chunk
     from repro_torch.serve.engine import ServeEngine
-    cfg = _port_cfg(**overrides)
+    family = overrides.get("family")
+    cfg = smoke_config(_RECURRENT_ARCH[family]) if family \
+        else _port_cfg(**overrides)
+    params = init_params(torch.Generator(), cfg, "cpu")
+    if family is None:
+        with pytest.raises(NotImplementedError, match=named):
+            ServeEngine(params, cfg, device="cpu")
+        return
+    eng = ServeEngine(params, cfg, device="cpu")
+    assert eng.chunk == 1
     with pytest.raises(NotImplementedError, match=named):
-        ServeEngine(init_params(torch.Generator(), cfg, "cpu"), cfg,
-                    device="cpu")
+        prefill_chunk(params, cfg, {"tokens": torch.zeros(
+            (eng.n_slots, 3), dtype=torch.long)}, eng.caches,
+            torch.zeros(eng.n_slots, dtype=torch.long),
+            torch.full((eng.n_slots,), 3))
 
 
 if __name__ == "__main__":

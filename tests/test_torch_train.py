@@ -566,12 +566,23 @@ def test_long_sequence_pads_a_kv_chunk(reference):
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_forward_refuses_recurrent_families(family):
-    """``forward`` (and so ``loss_fn`` and training) refuses the recurrent
-    families, as decode does (ROADMAP A9)."""
-    from repro_torch.models.model import forward
-    cfg = dataclasses.replace(port_cfg("dense"), family=family)
-    with pytest.raises(NotImplementedError, match=family):
-        forward({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    """``forward`` (and so ``loss_fn`` and training) takes the recurrent
+    families since ROADMAP A9 (tests/test_torch_recurrent.py holds them
+    to the reference), and refuses what the reference cannot run: a
+    sequence longer than one chunk of 128 and no multiple of it, which
+    the reference's chunked scans reshape and fail on (ValueError)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import forward, init_params
+    cfg = smoke_config({"ssm": "xlstm-125m", "hybrid": "zamba2-7b"}[family],
+                       remat=False)
+    assert cfg.family == family
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    with torch.no_grad():
+        assert forward(params, cfg, {"tokens": torch.zeros(
+            (1, 8), dtype=torch.long)}).shape == (1, 8, cfg.vocab_size)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            forward(params, cfg, {"tokens": torch.zeros((1, 130),
+                                                        dtype=torch.long)})
 
 
 # (c): the port's scalar arithmetic is the reference's, except that the

@@ -337,9 +337,9 @@ def test_init_caches_ring_per_layer_window():
 
 
 def test_check_supported_accepts_the_variants():
-    """All seven variant features at once are served; what is still
-    unported (the ssm and hybrid families, and embedding input in the
-    engine) raises NotImplementedError (test_torch_serve.py's
+    """All seven variant features at once are served; what the port still
+    refuses (chunked prefill of the recurrent families, and embedding
+    input in the engine) raises NotImplementedError (test_torch_serve.py's
     test_unsupported_config_raises has each)."""
     from repro_torch.models.model import check_supported
     cfg = dataclasses.replace(
