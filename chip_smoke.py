@@ -99,6 +99,22 @@ printing JSON lines:
                  on a seeded heavy-tailed (4096, 4096) f32 tensor: MSE
                  relative to MXFP4's and EBW, the first 256 rows equal to
                  the CPU's bit for bit
+  6c. mesh    -- distribution and launch (ROADMAP A11) on a one-rank NCCL
+                 process group: phase 3's weights cut to their first 2
+                 layers (MESH_LAYERS) placed by param_shardings on a 1 x 1
+                 ("data", "model") mesh, the engine's caches by
+                 cache_shardings, phase 3's traffic served through #1 (7
+                 launches a layer a launch) with the tokens of the same
+                 layers served unplaced and every placed leaf's local bytes
+                 the source's; one sharded (ZeRO-3) train step at full
+                 width and 2 layers bit-equal to make_train_step (loss,
+                 grad_norm, lr, parameters, moments); compressed_psum over
+                 a one-pod mesh bit-equal to compress_decompress on one
+                 full-width layer's gradient leaves; pipeline_apply with
+                 one stage equal to the stage; the dry-run's bytes per rank
+                 of every arch x shape on a 1 x 1 mesh beside the card's
+                 memory, and qwen2-0.5b decode_32k built on the card, the
+                 bytes it requests equal to the dry-run's count (asserted)
   7. variants -- the attention variants (ROADMAP A6a, A6b) served at full
                  width through the same engine, m2xfp weights from SEED
                  (the QKV biases and qk-norm weights seeded too, not
@@ -2731,6 +2747,258 @@ def flash_phase(timer, gen, device, kernels):
     return summary
 
 
+# Mesh phase (ROADMAP A11): the distributed surface on a one-rank NCCL
+# process group: phase 3's weights cut to MESH_LAYERS, placed on a 1 x 1
+# ("data", "model") mesh and served through #1 with phase 3's traffic
+# (MESH_TRAFFIC) beside the same layers served unplaced; one sharded train
+# step at full width and MESH_LAYERS against the plain one (MESH_TRAIN:
+# batch, seq); compressed_psum over a one-pod mesh on one full-width
+# layer's gradient leaves; pipeline_apply with one stage (MESH_PIPE:
+# microbatches, rows, width); the dry-run's bytes per rank of every cell on
+# a 1 x 1 mesh beside the card's memory, and MESH_CELL materialised.
+MESH_LAYERS = 2
+MESH_TRAFFIC = (REQUESTS, TOKENS, (16, 128))
+MESH_TRAIN = (2, 512)
+MESH_PIPE = (4, 8, 4096)
+MESH_CELL = ("qwen2-0.5b", "decode_32k")
+
+
+def _placed_bytes_equal(placed, source) -> bool:
+    """Every placed leaf's local shard holds the source leaf's bytes (a
+    1 x 1 mesh keeps all of it on the one rank)."""
+    from repro_torch.distributed.sharding import local_tree
+    a, b = _leaves(local_tree(placed)), _leaves(source)
+    return len(a) == len(b) and all(x.nbytes == y.nbytes
+                                    for x, y in zip(a, b))
+
+
+def _leaves(tree) -> list:
+    """Tensor leaves of a tree of dicts, lists and PackedTensors."""
+    from repro_torch.distributed.sharding import map_with_path
+    out = []
+    map_with_path(lambda _, t: out.append(t), tree)
+    return out
+
+
+def _requested_bytes() -> int:
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def mesh_dryrun(device) -> None:
+    """The dry-run's bytes per rank of every cell on a 1 x 1 mesh (the
+    whole cell on one card) beside the card's memory; MESH_CELL is then
+    built on the card and its allocation held to the count."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES, applicable_shapes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.models.model import init_caches
+    from repro_torch.serve.prequant import init_packed_params
+    one = LogicalMesh(("data", "model"), (1, 1))
+    free, total = torch.cuda.mem_get_info()
+    memo, fits = {}, []
+    t0 = time.perf_counter()
+    for arch in dryrun.DRYRUN_ARCHS:
+        for shape in applicable_shapes(get_config(arch)):
+            trees = dryrun.build_trees(dryrun.cell_config(arch, shape),
+                                       shape, memo)
+            r = dryrun.run_cell(arch, shape, False, save=False,
+                                trees=trees, mesh=one)
+            if not r["ok"]:
+                raise AssertionError(f"dry-run cell {arch} {shape}: "
+                                     f"{r['error']}")
+            b = r["bytes_per_rank"]
+            if b["total"] <= total:
+                fits.append(f"{arch} {shape}")
+            emit("mesh_dryrun", arch=arch, shape=shape, mesh="1x1",
+                 bytes_per_rank=b, card_total_bytes=total,
+                 fits_one_card=b["total"] <= total)
+    dryrun_s = time.perf_counter() - t0
+    arch, shape = MESH_CELL
+    cfg = dryrun.cell_config(arch, shape)
+    trees = dryrun.build_trees(cfg, shape)
+    count = dryrun.bytes_per_rank(trees, one, dryrun.cell_rules(shape))
+    gc.collect()
+    torch.cuda.empty_cache()
+    before, alloc0 = _requested_bytes(), torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_packed_params(gen, cfg, device)
+    s = SHAPES[shape]
+    caches = init_caches(cfg, s["batch"], s["seq"], device)
+    torch.cuda.synchronize()
+    requested = _requested_bytes() - before
+    allocated = torch.cuda.memory_allocated() - alloc0
+    want = count["params"] + count["caches"]
+    emit("mesh_materialized", arch=arch, shape=shape,
+         dryrun_params_bytes=count["params"],
+         dryrun_caches_bytes=count["caches"], dryrun_bytes=want,
+         requested_bytes=requested, allocated_bytes=allocated,
+         equal=requested == want, fits_one_card=fits, dryrun_s=dryrun_s)
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    if requested != want:
+        raise AssertionError(f"{arch} {shape}: the card holds {requested} "
+                             f"bytes, the dry-run counts {want}")
+
+
+def mesh_phase(params, device, kern, kernels) -> int:
+    """The ``mesh`` phase (see MESH_LAYERS): returns ``kern``'s launches
+    in the placed serve."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import (cache_shardings,
+                                                  gather_tree, local_tree,
+                                                  param_shardings,
+                                                  place_tree)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import (AdamWConfig, CompressionConfig,
+                                   compress_decompress, compressed_psum,
+                                   make_sharded_train_step, make_train_state,
+                                   make_train_step, train_state_shardings)
+    from repro_torch.tree import tree_leaves
+    kind = device.type                # "cuda" here; "cpu" in a rehearsal
+    dist.init_process_group("nccl" if kind == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_test_mesh((1, 1), ("data", "model"), kind)
+        # 1. serve: placed params and caches against the unplaced engine
+        cfg = get_config("paper-llama2-7b", quant="serve",
+                         quant_format="m2xfp", n_layers=MESH_LAYERS)
+        src = dict(params, layers=params["layers"][:MESH_LAYERS])
+        placed = place_tree(src, param_shardings(src, mesh))
+        params_equal = _placed_bytes_equal(placed, src)
+        n_requests, n_tokens, (lo, hi) = MESH_TRAFFIC
+        rng = np.random.default_rng(SEED)
+        prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+                   for n in rng.choice(np.arange(lo, hi + 1), n_requests)]
+
+        def serve(p, place_caches):
+            eng = ServeEngine(p, cfg, n_slots=N_SLOTS, max_len=MAX_LEN,
+                              prefill_chunk=CHUNK, device=device)
+            caches_equal = None
+            if place_caches:
+                pc = place_tree(eng.caches, cache_shardings(eng.caches,
+                                                            mesh))
+                caches_equal = _placed_bytes_equal(pc, eng.caches)
+                eng.caches = local_tree(pc)
+            outs = eng.generate(prompts, n_tokens)
+            torch.cuda.synchronize()
+            return eng, outs, caches_equal
+
+        _, want, _ = serve(src, False)
+        for k in kernels:                 # the path's counts start here
+            k.launches = 0
+        eng, got, caches_equal = serve(gather_tree(placed), True)
+        launches = kern.launches
+        others = {k.name: k.launches for k in kernels if k is not kern}
+        expected = 7 * MESH_LAYERS * eng.stats.steps
+        emit("mesh", check="serve", mesh="1x1 (data, model)",
+             layers=MESH_LAYERS, requests=len(prompts),
+             tokens_equal=got == want, params_local_bytes_equal=params_equal,
+             caches_local_bytes_equal=caches_equal, kernel=kern.name,
+             launches=launches, launches_expected=expected)
+        if got != want or not params_equal or not caches_equal \
+                or launches != expected or any(others.values()):
+            raise AssertionError(f"mesh serve: tokens equal {got == want}, "
+                                 f"bytes {params_equal}/{caches_equal}, "
+                                 f"launches {launches}/{expected} {others}")
+        del eng, placed, src
+        # 2. train: the sharded step against the plain step
+        tcfg = get_config("paper-llama2-7b", n_layers=MESH_LAYERS)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        state = make_train_state(gen, tcfg, device=device)
+        b, s = MESH_TRAIN
+        tok = torch.randint(0, tcfg.vocab_size, (b, s + 1), device=device,
+                            generator=gen)
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+        t1 = time.perf_counter()
+        plain, pm = make_train_step(tcfg, opt)(state, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        placed = place_tree(state, train_state_shardings(state, mesh))
+        t1 = time.perf_counter()
+        sharded, sm = make_sharded_train_step(tcfg, opt, mesh)(placed,
+                                                                batch)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t1
+        got = local_tree(sharded)
+        same = {k: bool(torch.equal(pm[k], sm[k]))
+                for k in ("loss", "grad_norm", "lr")}
+        same["params"] = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(got["params"]), tree_leaves(plain["params"])))
+        same["opt"] = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(got["opt"]), tree_leaves(plain["opt"])))
+        emit("mesh", check="train", mesh="1x1 (data, model)",
+             layers=MESH_LAYERS, batch=b, seq=s, loss=float(sm["loss"]),
+             grad_norm=float(sm["grad_norm"]), bits_equal=same,
+             plain_step_s=plain_s, sharded_step_s=sharded_s)
+        if not all(same.values()):
+            raise AssertionError(f"mesh train: {same}")
+        # 3. compressed_psum over one pod on layer 0's gradient leaves
+        grads = {k: torch.randn(v.shape, device=device, generator=gen)
+                 for k, v in _flat_layer(state["params"]["layers"][0])}
+        del state, plain, placed, sharded, got
+        pod_mesh = make_test_mesh((1, 1, 1), ("pod", "data", "model"),
+                                  kind)
+        cc = CompressionConfig(enabled=True, int8=True, topk_density=1.0)
+        err = {k: torch.zeros_like(v) for k, v in grads.items()}
+        red, new_err = compressed_psum(grads, err, cc,
+                                       pod_mesh.get_group("pod"), 1)
+        equal = True
+        for k, g in grads.items():
+            deq, e = compress_decompress(g, err[k], cc)
+            equal &= bool(torch.equal(deq, red[k])) \
+                and bool(torch.equal(e, new_err[k]))
+        emit("mesh", check="compressed_psum", mesh="1x1x1 (pod, data, "
+             "model)", leaves=len(grads),
+             elements=sum(g.numel() for g in grads.values()),
+             bit_equal_to_compress_decompress=equal)
+        if not equal:
+            raise AssertionError("compressed_psum over one pod differs "
+                                 "from compress_decompress")
+        del grads, err, red, new_err
+        # 4. pipeline_apply with one stage
+        n_micro, rows, width = MESH_PIPE
+        ws = torch.randn((1, width, width), device=device,
+                         generator=gen) * width ** -0.5
+        x = torch.randn((n_micro, rows, width), device=device,
+                        generator=gen)
+
+        def stage(w, h):
+            return torch.tanh(h @ w)
+        pipe = make_test_mesh((1,), ("pipe",), kind)
+        out = pipeline_apply(stage, ws, x, pipe, 1)
+        seq = torch.stack([stage(ws[0], x[m]) for m in range(n_micro)])
+        emit("mesh", check="pipeline", stages=1, microbatches=n_micro,
+             rows=rows, width=width, equal=bool(torch.equal(out, seq)))
+        if not torch.equal(out, seq):
+            raise AssertionError("pipeline_apply with one stage differs "
+                                 "from the stage")
+        del ws, x, out, seq
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 5. the dry-run on one card
+        mesh_dryrun(device)
+        emit("mesh", check="seconds", seconds=time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _flat_layer(layer: dict, prefix: str = ""):
+    """(path, leaf) of a layer's dict of dicts of tensors."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            yield from _flat_layer(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script measures the port "
@@ -2819,11 +3087,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("codecs")
     obs_launches = obs_phase(params, device, M2XFP, kernels)
+    dse_check(device)
+    lap("obs")
+    mesh_launches = mesh_phase(params, device, M2XFP, kernels)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    dse_check(device)
-    lap("obs")
+    lap("mesh")
     variant_launches = variants_phase(timer, device, M2XFP, kernels)
     lap("variants")
     family_launches = families_phase(timer, device, M2XFP, kernels)
@@ -2835,7 +3105,7 @@ def main() -> int:
     train_launches = train_phase(device, M2XFP, kernels)
     summary["m2xfp_matmul"]["launches"] = (
         launches + kv_launches + guard_launches + ideal_launches
-        + obs_launches + variant_launches + family_launches
+        + obs_launches + mesh_launches + variant_launches + family_launches
         + recurrent_launches + train_launches)
     gc.collect()
     torch.cuda.empty_cache()

@@ -167,11 +167,15 @@ def _to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def restore_state(ckpt_dir: str, template: Mapping,
-                  step: Optional[int] = None, verify: bool = True):
+                  step: Optional[int] = None, shardings=None,
+                  verify: bool = True):
     """Restore the leaves named by ``template`` (path -> anything with a
     ``.shape``, e.g. a tensor on the "meta" device) from step ``step`` (the
     newest when None). ``verify`` checks each leaf's CRC-32 against the
-    manifest. Returns ({path: CPU tensor}, manifest extra).
+    manifest. Returns ({path: CPU tensor}, manifest extra). ``shardings``:
+    optional {path: ``repro_torch.distributed.sharding.NamedSharding``} on
+    a ``DeviceMesh``; each such leaf is placed at its shard (a DTensor on
+    the mesh's device holding this rank's shard), after its CRC check.
 
     Raises :class:`CheckpointCorruptError`, naming the leaf whenever the
     container is readable enough to know it, when the npz is truncated or
@@ -180,7 +184,11 @@ def restore_state(ckpt_dir: str, template: Mapping,
     ``checkpoint.restore`` under the ``trace`` pillar of ``REPRO_OBS``."""
     with span("checkpoint.restore", cat="ckpt", dir=ckpt_dir,
               step=-1 if step is None else step):
-        return _restore_state(ckpt_dir, template, step, verify)
+        out, extra = _restore_state(ckpt_dir, template, step, verify)
+    if shardings is not None:
+        out = {k: shardings[k].place(v) if k in shardings else v
+               for k, v in out.items()}
+    return out, extra
 
 
 def _restore_state(ckpt_dir, template, step, verify):

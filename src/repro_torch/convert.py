@@ -31,12 +31,26 @@ from repro_torch.tree import tree_map
 
 __all__ = ["from_jax_tree", "to_tensor", "stack_layers", "flat_leaves",
            "from_flat_leaves", "from_jax_train_state", "to_jax_train_state",
-           "train_state_leaves", "from_train_state_leaves"]
+           "train_state_leaves", "from_train_state_leaves", "STACKED",
+           "reference_ndims"]
 
 _TREES = ("params", "err")          # a train state's parameter-shaped trees
 # the keys under which the reference stacks blocks on axis 0
 STACKED = ("layers", "mlstm", "mlstm_norm", "slstm", "slstm_norm", "mamba",
            "mamba_norm")
+
+
+def reference_ndims(tree):
+    """``tree`` (a parameter-shaped dict of the port) with each tensor leaf
+    replaced by the number of axes of its counterpart in the reference's
+    layout: one more than its own under a ``STACKED`` key, where the
+    reference holds the blocks on axis 0 (a per-layer norm is a vector
+    here and a matrix there). The reference's rules that test ``ndim``
+    (the compute cast, weight decay) read this."""
+    if not isinstance(tree, dict):
+        return tree_map(lambda t: t.dim(), tree)
+    return {k: tree_map(lambda t, s=int(k in STACKED): t.dim() + s, v)
+            for k, v in tree.items()}
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:

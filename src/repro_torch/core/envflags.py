@@ -1,14 +1,19 @@
 """Typed registry of the port's ``REPRO_*`` environment flags (the part of
-repro.core.envflags the port needs: the string flags ``REPRO_OBS`` and
-``REPRO_OBS_DIR``).
+repro.core.envflags the port needs: the string flags ``REPRO_OBS``,
+``REPRO_OBS_DIR``, ``REPRO_KV_QUANT`` and ``REPRO_RULES_JSON``, and the
+int flag ``REPRO_MOE_GROUP``).
 
-A flag is *declared* once (name, type, default, docstring) and *read*
-through the accessors, which re-read the environment on every call, so
-tests can monkeypatch ``os.environ`` freely and nothing is cached behind
-their back. Every flag read of the port goes through this module: a flag
-the port comes to read is declared here, with the reference's parsing
-and error text (its int and bool kinds, ``choices`` and ``minimum``, are
+A flag is *declared* once (name, type, default, docstring, an int's
+``minimum``) and *read* through the accessors, which re-read the
+environment on every call, so tests can monkeypatch ``os.environ`` freely
+and nothing is cached behind their back. Every flag read of the port goes
+through this module: a flag the port comes to read is declared here, with
+the reference's parsing and error text (its bool kind and ``choices`` are
 not copied until a flag needs them).
+
+Parsing: ``str`` -- unset returns the default; ``int`` -- unset returns
+the default (None for an optional flag), a non-integer or a value below
+``minimum`` raises ``ValueError`` with the reference's message.
 """
 from __future__ import annotations
 
@@ -16,7 +21,10 @@ import dataclasses
 import os
 from typing import Any, Dict, Optional, Tuple
 
-__all__ = ["EnvFlag", "declare", "defined_flags", "get_raw", "get_str"]
+__all__ = ["EnvFlag", "declare", "defined_flags", "get_raw", "get_str",
+           "get_int"]
+
+_KINDS = ("int", "str")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,21 +32,23 @@ class EnvFlag:
     """One declared environment flag."""
 
     name: str
-    kind: str                                # "str"
+    kind: str                                # "int" | "str"
     default: Any
     help: str
+    minimum: Optional[int] = None            # int flags only
 
 
 _FLAGS: Dict[str, EnvFlag] = {}
 
 
-def declare(name: str, kind: str, default: Any, help: str) -> EnvFlag:
+def declare(name: str, kind: str, default: Any, help: str, *,
+            minimum: Optional[int] = None) -> EnvFlag:
     """Register a flag. Redeclaring with an identical spec is a no-op; a
     conflicting spec is an error."""
-    if kind != "str":
-        raise ValueError(f"flag {name!r}: kind must be one of ('str',), "
+    if kind not in _KINDS:
+        raise ValueError(f"flag {name!r}: kind must be one of {_KINDS}, "
                          f"got {kind!r}")
-    flag = EnvFlag(name, kind, default, help)
+    flag = EnvFlag(name, kind, default, help, minimum=minimum)
     prev = _FLAGS.get(name)
     if prev is not None and prev != flag:
         raise ValueError(f"flag {name!r} already declared with a different "
@@ -69,11 +79,39 @@ def get_raw(name: str) -> Optional[str]:
     return os.environ.get(name)
 
 
+def _kind_checked(name: str, kind: str) -> EnvFlag:
+    flag = _flag(name)
+    if flag.kind != kind:
+        raise TypeError(f"flag {name!r} is declared {flag.kind!r}, "
+                        f"not {kind!r}")
+    return flag
+
+
 def get_str(name: str) -> Optional[str]:
     """Read of a declared string flag: its default when unset."""
-    flag = _flag(name)
+    flag = _kind_checked(name, "str")
     raw = os.environ.get(name)
     return flag.default if raw is None else raw
+
+
+def get_int(name: str) -> Optional[int]:
+    """Read of a declared int flag: its default when unset; a non-integer
+    or a value below its ``minimum`` raises ``ValueError``."""
+    flag = _kind_checked(name, "int")
+    raw = os.environ.get(name)
+    if raw is None:
+        return flag.default
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"{name}={raw!r}: not an integer (unset it for the default "
+            f"{flag.default})") from None
+    if flag.minimum is not None and v < flag.minimum:
+        raise ValueError(
+            f"{name}={raw!r}: must be >= {flag.minimum}; unset it for the "
+            f"default {flag.default}")
+    return v
 
 
 # ---------------------------------------------------------------------------
@@ -88,3 +126,13 @@ declare("REPRO_OBS_DIR", "str", "",
         "When set, components that finish a unit of work drop "
         "metrics.jsonl + trace.json snapshots there "
         "(repro_torch.obs.autodump).")
+declare("REPRO_KV_QUANT", "str", "none",
+        "KV-cache codec for the dry-run's serve cells: 'none' or a "
+        "kv-capable codec name from repro_torch.core.codecs (e.g. "
+        "'m2xfp').")
+declare("REPRO_MOE_GROUP", "int", None,
+        "Override moe_group_size for dry-run train cells (expert-group "
+        "size of the MoE dispatch).", minimum=1)
+declare("REPRO_RULES_JSON", "str", None,
+        "JSON object of logical-sharding rule overrides for the dry-run, "
+        "e.g. '{\"fsdp\": null, \"mlp\": [\"data\",\"model\"]}'.")

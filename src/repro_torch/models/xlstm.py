@@ -138,7 +138,7 @@ def _mlstm_qkv(p, x_norm, cfg, quant):
     xc = _conv4(xin, p["conv_w"], p["conv_b"])               # (B,S,din) f32
     q, k, v = _heads(xc.reshape(b, s, h, p_),
                      xin.to(_F32).reshape(b, s, h, p_), p, h, p_)
-    gates = xc @ p["w_if"] + p["b_if"]                        # (B,S,2H)
+    gates = xc @ p["w_if"].to(_F32) + p["b_if"]               # (B,S,2H)
     logi = gates[..., :h]
     logf = log_sigmoid(gates[..., h:])
     o = torch.sigmoid(
@@ -235,7 +235,7 @@ def mlstm_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
     xc = silu(torch.einsum("bkc,kc->bc", win, p["conv_w"]) + p["conv_b"])
     q, k, v = _heads(xc.reshape(b, h, p_), xin.to(_F32).reshape(b, h, p_),
                      p, h, p_)
-    gates = xc @ p["w_if"] + p["b_if"]
+    gates = xc @ p["w_if"].to(_F32) + p["b_if"]
     logi, logf = gates[:, :h], log_sigmoid(gates[:, h:])
     m_new = torch.maximum(logf + cache["m"], logi)
     wf = torch.exp(logf + cache["m"] - m_new)
@@ -293,7 +293,8 @@ def _slstm_step(p, cfg, carry, wx_t):
     c, n, hprev, m = carry
     hh = hprev.reshape(-1, nh, p_)
     rec = torch.stack([
-        torch.einsum("bhp,hpq->bhq", hh, p["r"][j]) for j in range(4)
+        torch.einsum("bhp,hpq->bhq", hh, p["r"][j].to(hh.dtype))
+        for j in range(4)
     ], dim=1).reshape(-1, 4 * d)                               # (B, 4d)
     pre = wx_t + rec + p["b"]
     zt = torch.tanh(pre[:, :d])

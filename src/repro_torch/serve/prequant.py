@@ -80,7 +80,7 @@ def packed_template(cfg) -> dict:
 
 def _restore(ckpt_dir, template, cfg, step, verify, device):
     flat, extra = restore_state(ckpt_dir, flat_leaves(template), step,
-                                verify)
+                                verify=verify)
     return from_flat_leaves(flat, template, cfg, device), extra
 
 
@@ -97,7 +97,7 @@ def save_packed_checkpoint(ckpt_dir: str, packed: dict, cfg, step: int = 0,
 
 
 def load_packed_checkpoint(ckpt_dir: str, cfg, step: Optional[int] = None,
-                           verify: bool = True,
+                           shardings=None, verify: bool = True,
                            validate_streams: bool = False,
                            device="cuda") -> Tuple[dict, dict]:
     """Restore a packed checkpoint (the newest step when ``step`` is None)
@@ -113,7 +113,12 @@ def load_packed_checkpoint(ckpt_dir: str, cfg, step: Optional[int] = None,
     (``repro_torch.core.codecs.validate_packed_tree``: E8M0 scale-byte
     range etc.) on the restored dict and raise ``ValueError`` listing the
     offending leaves -- it catches damage done *before* the checkpoint was
-    written, which passes the CRC."""
+    written, which passes the CRC.
+    ``shardings``: optional tree of ``NamedSharding`` on a ``DeviceMesh``
+    matching the port's packed dict (``param_shardings`` of it, e.g. of
+    ``init_packed_params(..., "meta")``); each restored leaf, packed
+    streams included, is placed at its shard (a DTensor) after the CRC
+    check and the stream validation."""
     extra = read_manifest(ckpt_dir, step).get("extra", {})
     tag = extra.get("format")
     if tag == _LEGACY_TAG:
@@ -147,6 +152,9 @@ def load_packed_checkpoint(ckpt_dir: str, cfg, step: Optional[int] = None,
                 f"{ckpt_dir} restored but {len(report)} packed leaf(s) "
                 f"violate codec stream invariants ({detail}); re-run "
                 f"prequantize_checkpoint from source weights")
+    if shardings is not None:
+        from repro_torch.distributed.sharding import place_tree
+        packed = place_tree(packed, shardings)
     return packed, manifest_extra
 
 

@@ -26,6 +26,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.convert import reference_ndims
 from repro_torch.core.dtypes import div_const
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -85,21 +86,29 @@ def global_norm(tree) -> torch.Tensor:
     return torch.stack(sums).sum().to(torch.float32).sqrt()
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by min(1, max_norm / max(norm, 1e-12)), norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """(grads scaled by min(1, max_norm / max(norm, 1e-12)), norm); ``norm``
+    defaults to ``global_norm(grads)`` (a sharded step passes the norm of
+    the whole gradients with one rank's shards)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = (norm.new_full((), max_norm) / norm.clamp_min(1e-12)).clamp_max(
         1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
 
 def adamw_update(params, grads, opt_state, cfg: AdamWConfig,
-                 schedule=None):
-    """One AdamW step. Decoupled weight decay on matrix (ndim >= 2) leaves.
-    Returns (new_params, new_opt_state, metrics {"grad_norm", "lr"})."""
+                 schedule=None, grad_norm=None):
+    """One AdamW step. Decoupled weight decay on the leaves whose
+    counterpart in the reference's layout is a matrix (ndim >= 2 there:
+    ``convert.reference_ndims``, so a per-layer vector of a stacked group
+    decays as the reference's stacked one does). Returns (new_params,
+    new_opt_state, metrics {"grad_norm", "lr"}). ``grad_norm``: the
+    clipping norm when ``grads`` are one rank's shards of the gradients
+    (default: ``global_norm(grads)``)."""
     step = opt_state["step"] + 1
     lr = (schedule or warmup_cosine(cfg))(step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
 
     b1, b2 = cfg.b1, cfg.b2
     step_f = step.to(torch.float32)
@@ -110,18 +119,19 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig,
                                  step_f)
     bc1, bc2 = correction(b1), correction(b2)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, ndim):
         g = g.to(torch.float32)
         m_new = b1 * m + (1 - b1) * g
         v_new = b2 * v + (1 - b2) * g * g
         mhat = m_new / bc1
         vhat = v_new / bc2
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.dim() >= 2:
+        if ndim >= 2:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * delta).to(p.dtype), m_new, v_new
 
-    out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
+    out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"],
+                   reference_ndims(params))
 
     def pick(i):                          # out's leaves are (p, m, v)
         return tree_map(lambda o: o[i], out)

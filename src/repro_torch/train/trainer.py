@@ -1,36 +1,54 @@
-"""Train step of the port (port of repro.train.trainer's plain path):
-AdamW training with optional microbatch accumulation, on one device.
+"""Train steps of the port (port of repro.train.trainer): AdamW training
+with optional microbatch accumulation on one device, the compressed
+cross-pod step, and a sharded (ZeRO-3) step over a ``DeviceMesh``.
 
 State layout (the reference's, with the port's parameter tree):
   state = {"params": f32 master tree, "opt": {"m", "v", "step"},
            "err": error-feedback tree (only when compression is on)}
 
-The forward pass casts matrix leaves to bf16 (``cast_for_compute``);
-gradients and the optimizer's arithmetic are f32. The cast's backward
-hands AdamW an f32 gradient holding a bf16 value, as JAX's transpose of
-``astype`` does.
+The forward pass casts to bf16 every floating leaf whose counterpart in
+the reference's layer-stacked layout has two or more axes
+(``cast_for_compute``); gradients and the optimizer's arithmetic are f32.
+The cast's backward hands AdamW an f32 gradient holding a bf16 value, as
+JAX's transpose of ``astype`` does.
+
+Meshes: ``train_state_shardings`` places the state (m, v and err mirror
+the parameters, step replicated) and ``batch_sharding`` the batch.
+``make_train_step(..., compression=..., mesh=...)`` is the reference's
+compressed path: each pod rank takes its slice of the batch, the
+gradients are reduced across pods by ``compressed_psum``, the loss is
+averaged over pods, and every pod applies the same AdamW update.
+``make_sharded_train_step`` is the plain path on a mesh.
 
 ``publish_train_metrics`` streams a step's metrics through the
 telemetry registry (``REPRO_OBS``).
-
-Not ported (ROADMAP): the compressed cross-pod step and the mesh
-shardings (``train_state_shardings``, ``batch_sharding``) need a multi-pod
-mesh (A11).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
+from repro_torch.convert import reference_ndims
+from repro_torch.core.dtypes import div_const
+from repro_torch.distributed.sharding import (NamedSharding, gather_tree,
+                                              local_tree, logical_to_spec,
+                                              param_shardings, place_tree,
+                                              use_sharding)
+from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.tree import tree_leaves, tree_map
-from .compression import CompressionConfig, init_error_feedback
-from .optimizer import AdamWConfig, adamw_init, adamw_update, warmup_cosine
+from .compression import (CompressionConfig, compressed_psum,
+                          init_error_feedback)
+from .optimizer import (AdamWConfig, adamw_init, adamw_update, global_norm,
+                        warmup_cosine)
 
 __all__ = ["make_train_state", "make_train_step", "cast_for_compute",
-           "publish_train_metrics"]
+           "train_state_shardings", "batch_sharding",
+           "make_sharded_train_step", "publish_train_metrics"]
 
 
 def publish_train_metrics(metrics: dict, step: Optional[int] = None) -> None:
@@ -69,10 +87,16 @@ def publish_train_metrics(metrics: dict, step: Optional[int] = None) -> None:
 
 
 def cast_for_compute(params):
-    """Master f32 -> compute dtypes: floating matrix leaves bf16, the rest
-    (vectors) as they are."""
-    return tree_map(lambda p: p.to(torch.bfloat16)
-                    if p.dim() >= 2 and p.is_floating_point() else p, params)
+    """Master f32 -> compute dtypes: a floating leaf is cast to bf16 where
+    the reference's counterpart has two or more axes
+    (``convert.reference_ndims``): inside a stacked group (a key of
+    ``convert.STACKED``, where the reference adds axis 0) when it has one
+    axis or more, so per-layer norms and biases compute in bf16; elsewhere
+    when it has two or more (the final norm and the hybrid's unstacked
+    ``shared_attn`` vectors stay f32)."""
+    return tree_map(lambda p, ndim: p.to(torch.bfloat16)
+                    if ndim >= 2 and p.is_floating_point() else p,
+                    params, reference_ndims(params))
 
 
 def make_train_state(gen: torch.Generator, cfg,
@@ -88,6 +112,30 @@ def make_train_state(gen: torch.Generator, cfg,
     if compression and compression.enabled:
         state["err"] = init_error_feedback(params)
     return state
+
+
+def train_state_shardings(state, mesh, rules=None):
+    """``NamedSharding`` tree for the whole train state: m, v (and err)
+    mirror the parameters, step is replicated."""
+    ps = param_shardings(state["params"], mesh, rules)
+    out = {"params": ps, "opt": {"m": ps, "v": ps,
+                                 "step": NamedSharding(mesh, ())}}
+    if "err" in state:
+        out["err"] = ps
+    return out
+
+
+def batch_sharding(mesh, rules=None) -> NamedSharding:
+    """The batch's sharding: axis 0 over the rules' ``batch`` axes."""
+    with use_sharding(mesh, rules):
+        spec = logical_to_spec(("batch", None))
+    return NamedSharding(mesh, spec)
+
+
+def _local_batch(batch: dict, sharding: NamedSharding) -> dict:
+    """This rank's slice of every batch tensor (the same full batch on
+    every rank)."""
+    return {k: sharding.place(v).to_local() for k, v in batch.items()}
 
 
 def _loss_and_grads(params, cfg, batch):
@@ -127,20 +175,24 @@ def _grads_and_loss(params, cfg, batch: dict, num_microbatches: int):
 
 def make_train_step(cfg, opt_cfg: AdamWConfig,
                     compression: Optional[CompressionConfig] = None,
-                    num_microbatches: int = 1):
-    """Returns ``train_step(state, batch) -> (state, metrics)``: the
-    reference's plain path. ``batch`` is a dict of tensors on the
-    parameters' device ({"tokens", "labels"}, or {"embeds", "labels"});
-    ``metrics`` holds f32 tensors "loss", "grad_norm" and "lr". An enabled
-    ``compression`` needs the multi-pod path, which is not ported."""
-    if compression and compression.enabled:
-        raise NotImplementedError(
-            "the compressed train step reduces gradients across the 'pod' "
-            "axis of a multi-pod mesh; the torch port has no mesh yet "
-            "(ROADMAP A11)")
+                    num_microbatches: int = 1, mesh=None, rules=None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``. ``batch``
+    is a dict of tensors on the parameters' device ({"tokens", "labels"},
+    or {"embeds", "labels"}); ``metrics`` holds f32 tensors "loss",
+    "grad_norm" and "lr".
+
+    Plain path (no enabled ``compression``): one process, the whole batch.
+    Compressed path: ``mesh`` is a ``DeviceMesh`` with a "pod" dim and the
+    state holds "err" (``make_train_state(..., compression)``); every rank
+    calls the step with the same full batch and the same state, takes its
+    pod's slice of the batch (axis 0 over "pod"), and the pods' gradients
+    meet in ``compressed_psum``; the loss is the mean over pods, and every
+    pod applies the same AdamW update. Inside a pod every rank computes the
+    pod's whole slice: the "data" and "model" dims add no parallelism to
+    this step."""
     schedule = warmup_cosine(opt_cfg)
 
-    def train_step(state, batch):
+    def plain_step(state, batch):
         loss, grads = _grads_and_loss(state["params"], cfg, batch,
                                       num_microbatches)
         new_p, new_opt, metrics = adamw_update(
@@ -151,4 +203,92 @@ def make_train_step(cfg, opt_cfg: AdamWConfig,
             new_state["err"] = state["err"]
         return new_state, metrics
 
-    return train_step
+    if not (compression and compression.enabled):
+        return plain_step
+    sizes = mesh_axis_sizes(mesh) if mesh is not None else {}
+    if "pod" not in sizes:
+        raise ValueError("the compressed reduction needs a mesh with a "
+                         "'pod' dim (the multi-pod mesh)")
+    n_pods = sizes["pod"]
+    group = mesh.get_group("pod")
+    pod_slice = NamedSharding(mesh, ("pod",))
+
+    def compressed_step(state, batch):
+        loss, grads = _grads_and_loss(
+            state["params"], cfg, _local_batch(batch, pod_slice),
+            num_microbatches)
+        grads, new_err = compressed_psum(grads, state["err"], compression,
+                                         group, n_pods)
+        dist.all_reduce(loss, group=group)
+        loss = div_const(loss, n_pods)
+        new_p, new_opt, metrics = adamw_update(
+            state["params"], grads, state["opt"], opt_cfg, schedule)
+        metrics["loss"] = loss
+        return {"params": new_p, "opt": new_opt, "err": new_err}, metrics
+
+    return compressed_step
+
+
+def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh, rules=None,
+                            num_microbatches: int = 1):
+    """The plain step on a ``DeviceMesh``, ZeRO-3 in the reference's sense
+    (its FSDP rules): master parameters, m and v are DTensor shards at
+    ``train_state_shardings`` (``place_tree``), gathered for compute (the
+    model's compute is not tensor-parallel). Every rank is called with the
+    same full batch and computes the loss on its ``batch_sharding`` slice;
+    the loss and gradients are averaged over the batch dims (summed by
+    ``all_reduce`` from zeros, then times 1 / n, the plain microbatch
+    path's arithmetic), the gradient norm is taken on the whole averaged
+    gradients, and AdamW updates each rank's shards. With n batch ranks it
+    equals ``make_train_step(num_microbatches=n)`` on the whole batch (bit
+    for bit at n = 2, where a sum of two does not depend on its order); on
+    a 1 x 1 mesh, ``make_train_step`` itself.
+
+    The gradients are all-reduced whole and then cut to each shard, not
+    reduce-scattered: clipping needs the global norm, and taking it on the
+    whole tensors keeps the plain step's bits."""
+    schedule = warmup_cosine(opt_cfg)
+    bsh = batch_sharding(mesh, rules)
+    sizes = mesh_axis_sizes(mesh)
+    batch_axes = [a for a in (bsh.spec[0] if isinstance(bsh.spec[0], tuple)
+                              else (bsh.spec[0],)) if a is not None]
+    n_batch = math.prod(sizes[a] for a in batch_axes)
+    groups = [mesh.get_group(a) for a in batch_axes]
+
+    def batch_mean(t):
+        t = t.clone()
+        for g in groups:
+            dist.all_reduce(t, group=g)
+        return (torch.zeros_like(t) + t) * (1.0 / n_batch)
+
+    def step(state, batch):
+        from torch.distributed.tensor import DTensor
+        params = state["params"]
+        loss, grads = _grads_and_loss(gather_tree(params), cfg,
+                                      _local_batch(batch, bsh),
+                                      num_microbatches)
+        if n_batch > 1:
+            loss, grads = batch_mean(loss), tree_map(batch_mean, grads)
+        gnorm = global_norm(grads)
+        shardings = train_state_shardings(state, mesh, rules)["params"]
+        grad_shards = local_tree(place_tree(grads, shardings))
+        opt = state["opt"]
+        new_p, new_opt, metrics = adamw_update(
+            local_tree(params), grad_shards,
+            {"m": local_tree(opt["m"]), "v": local_tree(opt["v"]),
+             "step": local_tree(opt["step"])},
+            opt_cfg, schedule, grad_norm=gnorm)
+        metrics["loss"] = loss
+
+        def wrap(local, like):
+            return DTensor.from_local(local, like.device_mesh,
+                                      like.placements, run_check=False)
+        new_state = {"params": tree_map(wrap, new_p, params),
+                     "opt": {"m": tree_map(wrap, new_opt["m"], opt["m"]),
+                             "v": tree_map(wrap, new_opt["v"], opt["v"]),
+                             "step": wrap(new_opt["step"], opt["step"])}}
+        if "err" in state:
+            new_state["err"] = state["err"]
+        return new_state, metrics
+
+    return step

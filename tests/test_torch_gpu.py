@@ -18,7 +18,10 @@ with its host-only pillars, the ten strategies against the CPU), and the
 recurrent and hybrid families (slice 14: one decode step of each block
 kind at full width against the CPU, the engine on the xLSTM and Zamba2
 smoke models against the CPU's, the blocks' forward against decode at full
-width, kernel #1 at zamba2-7b's projection shapes).
+width, kernel #1 at zamba2-7b's projection shapes), and the distributed
+surface (slice 15: a one-rank NCCL group's 1 x 1 mesh placing a packed
+tree with its bits, and the one-pod ``compressed_psum`` equal to
+``compress_decompress``).
 Each
 decides inside its body whether there is a CUDA device and skips without
 one. This file imports no JAX, so it also runs where only the port is
@@ -1609,3 +1612,84 @@ def test_cuda_engine_recurrent_match_cpu(arch):
                                           cfg.vocab_size)
     assert card.chunk == 1
     assert M2XFP_KERNEL.launches == gemm_launches(cfg) * card.stats.steps
+
+
+# ---------------------------------------------------------------------------
+# Slice 15: the distributed surface on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+def _one_rank_nccl():
+    """A one-rank NCCL process group (raises when it does not form)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_placed_params_round_trip_bits():
+    """Packed and dense parameters of the paper config's smoke model on
+    the card, placed by ``param_shardings`` on a 1 x 1 ("data", "model")
+    mesh: every leaf's local shard and its gathered value hold the
+    source's bits and bytes."""
+    _need_cuda()
+    import torch.distributed as dist
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import (gather_tree, local_tree,
+                                                  map_with_path,
+                                                  param_shardings,
+                                                  place_tree)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.prequant import init_packed_params
+    cfg = smoke_config("paper-llama2-7b", quant="serve")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trees = [init_params(gen, cfg, "cuda"),
+             init_packed_params(gen, cfg, "cuda")]
+    _one_rank_nccl()
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), "cuda")
+        for tree in trees:
+            placed = place_tree(tree, param_shardings(tree, mesh))
+            src, loc, full = ([], [], [])
+            map_with_path(lambda _, t: src.append(t), tree)
+            map_with_path(lambda _, t: loc.append(t), local_tree(placed))
+            map_with_path(lambda _, t: full.append(t), gather_tree(placed))
+            assert len(src) == len(loc) == len(full)
+            for a, b, c in zip(src, loc, full):
+                assert b.is_cuda and b.nbytes == a.nbytes
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_one_pod_compressed_psum_equals_compress_decompress():
+    """``compressed_psum`` over a one-pod ("pod", "data", "model") mesh of
+    a one-rank NCCL group equals ``compress_decompress`` leaf by leaf, bit
+    for bit (int8, with and without top-k)."""
+    _need_cuda()
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import (CompressionConfig, compress_decompress,
+                                   compressed_psum)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    grads = {"w": torch.randn((512, 384), device="cuda", generator=gen),
+             "b": torch.randn((384,), device="cuda", generator=gen),
+             "z": torch.zeros((64, 32), device="cuda")}
+    errs = {k: torch.randn(v.shape, device="cuda", generator=gen) * 1e-3
+            for k, v in grads.items()}
+    _one_rank_nccl()
+    try:
+        mesh = make_test_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+        for cc in (CompressionConfig(True, True, 1.0),
+                   CompressionConfig(True, True, 0.25),
+                   CompressionConfig(True, False, 0.1)):
+            red, new_err = compressed_psum(grads, errs, cc,
+                                           mesh.get_group("pod"), 1)
+            for k, g in grads.items():
+                deq, e = compress_decompress(g, errs[k], cc)
+                assert torch.equal(red[k], deq), (cc, k)
+                assert torch.equal(new_err[k], e), (cc, k)
+    finally:
+        dist.destroy_process_group()

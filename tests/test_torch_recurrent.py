@@ -28,7 +28,10 @@ layer):
     ``_reset_slot``'s scrub of that slot;
 (g) the blocks at tests/test_recurrent.py's sizes: ``mamba2_forward``,
     ``mlstm_forward``, ``slstm_forward`` and the chunkwise mLSTM cell on
-    that file's inputs.
+    that file's inputs;
+(h) the compute cast and one train step (ROADMAP C2) from f32 masters
+    whose vectors lie off the bf16 grid (test_torch_train.py's
+    ``offgrid_vectors`` and ``reference_train_step``).
 
 The port also holds its own copies of tests/test_recurrent.py's four
 properties (chunkwise == sequential, forward == decode), and restores the
@@ -47,7 +50,10 @@ from repro_torch.testing.recurrent import BLOCKS
 from repro_torch.testing.train import grad_agreement
 from test_torch_checkpoint import _assert_same_checkpoint
 from test_torch_serve import _assert_same_tree, _flatten, run_reference_child
-from test_torch_train import reference_loss
+from test_torch_train import (assert_cast_matches_reference,
+                              assert_step_matches_reference,
+                              offgrid_vectors, reference_loss,
+                              reference_train_step)
 from test_torch_variants import _margin_recorder
 
 CASES = {"xlstm-smoke": "xlstm-125m", "zamba2-smoke": "zamba2-7b"}
@@ -205,6 +211,11 @@ def _reference_case(configs, case: str, root: str) -> dict:
         out["modes"][quant] = {"logits": np.asarray(logits),
                                "loss": float(loss),
                                "grads": _flatten(grads)}
+    # (h) the C2 check from f32 masters with off-grid vectors
+    f32 = jax.tree.map(lambda a: np.asarray(a, np.float32), out["dense"])
+    c2_params = offgrid_vectors(f32)
+    out["c2"] = {"params": c2_params, **reference_train_step(
+        base, c2_params, batch)}
     return out
 
 
@@ -597,6 +608,33 @@ def test_forward_loss_and_grads_match_reference(reference, case, quant):
     assert torch.equal(loss, loss_r)
     for k, g in grads_r.items():
         assert torch.equal(g, grads[k]), k
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_compute_cast_matches_reference(reference, case):
+    """ROADMAP C2: the compute cast of f32 masters with off-grid vectors
+    gives the reference's dtypes and bits leaf by leaf: the stacked groups'
+    vectors (norms, b_if, A_log, D, dt_bias, conv_b) bf16, the final norm
+    and zamba2's shared block's norms f32."""
+    from repro_torch.convert import from_jax_tree
+    want = reference[case]["c2"]
+    assert_cast_matches_reference(
+        from_jax_tree(want["params"], port_cfg(case), "cpu"), want["cast"])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_train_step_from_offgrid_vectors_matches_reference(reference,
+                                                           case):
+    """One train step of the recurrent families from that state against
+    the reference's (test_torch_train.py's assert_step_matches_reference:
+    loss, grad_norm and every gradient within its bounds)."""
+    from repro_torch.convert import from_jax_tree
+    want = reference[case]["c2"]
+    cfg = port_cfg(case, remat=False)
+    batch = {k: torch.from_numpy(v).long()
+             for k, v in case_batch(cfg).items()}
+    assert_step_matches_reference(
+        cfg, from_jax_tree(want["params"], cfg, "cpu"), batch, want, case)
 
 
 def test_forward_takes_the_references_sequence_lengths():

@@ -20,7 +20,11 @@ the smoke configs:
 (f) the deployment story: test_system.py's training, then the trained
     parameters packed m2xfp, ``loss_fn`` under ``serve``, under ``none``
     and under ``qat``/mxfp4 on a held-out batch, and the engine's greedy
-    tokens.
+    tokens;
+(g) the compute cast (ROADMAP C2) from a state whose vectors lie off the
+    bf16 grid (``offgrid_vectors``): ``cast_for_compute``'s dtypes and
+    bits, the trainer's gradients and one ``make_train_step``
+    (``reference_train_step``, shared with test_torch_recurrent.py).
 
 The port side runs on one torch thread (test_torch_moe.py says why) and
 holds each result to the tolerance stated beside it. Data batches
@@ -80,6 +84,12 @@ EVAL_DATA = dict(batch=8, seq=32, seed=99, motif_len=6, noise=0.02)
 PROMPTS = [[5, 17, 5, 17, 9], [3, 3, 100, 42, 7, 7, 1, 0, 64], [77, 1, 2]]
 ENGINE = dict(n_slots=2, max_len=32, prefill_chunk=4)
 N_NEW = 6
+# (g): the attention family of the C2 check (qk-norm: per-layer vectors
+# inside "attn" too), its optimizer, and the offsets put on every vector:
+# N(0, OFFGRID_STD^2) added in f32, which leaves no value on the bf16 grid
+C2_CASE = "qwen3-smoke"
+C2_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+OFFGRID_STD = 0.01
 
 
 def make_config(configs, case: str, **kw):
@@ -144,6 +154,48 @@ def opt_tree(seed):
             "b": rng.standard_normal((24,)).astype(np.float32),
             "layers": {"u": rng.standard_normal((3, 16, 8)).astype(
                 np.float32)}}
+
+
+def offgrid_vectors(tree: dict, seed: int = 26) -> dict:
+    """A copy of a parameter tree in the reference's layout (numpy f32
+    leaves, layers stacked) with N(0, OFFGRID_STD^2) added to every vector:
+    each per-layer vector (a leaf of rank 2 under a stacked key of
+    ``repro_torch.convert.STACKED``) and each unstacked vector (rank 1:
+    the final norm, the hybrid's shared block's norms)."""
+    from repro_torch.convert import STACKED
+    rng = np.random.default_rng(seed)
+
+    def walk(node, stacked):
+        if isinstance(node, dict):
+            return {k: walk(node[k], stacked) for k in sorted(node)}
+        a = np.asarray(node)
+        if a.ndim == 1 + int(stacked) and a.dtype == np.float32:
+            return (a + OFFGRID_STD * rng.standard_normal(a.shape)).astype(
+                np.float32)
+        return a
+    return {k: walk(tree[k], k in STACKED) for k in sorted(tree)}
+
+
+def reference_train_step(cfg, params: dict, batch: dict) -> dict:
+    """In the child: from the f32 ``params`` (numpy, reference layout)
+    with AdamW's zero moments, ``cast_for_compute``'s tree, the trainer's
+    loss and gradients (``_grads_and_loss``) and one ``make_train_step``
+    with C2_OPT (one jit: XLA computes the gradients once)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.train.optimizer import AdamWConfig, adamw_init
+    from repro.train.trainer import (_grads_and_loss, cast_for_compute,
+                                     make_train_step)
+    p = jax.tree.map(jnp.asarray, params)
+    state = {"params": p, "opt": adamw_init(p)}
+    step = make_train_step(cfg, AdamWConfig(**C2_OPT))
+    (loss, grads), (new_state, metrics) = jax.jit(
+        lambda s, b: (_grads_and_loss(s["params"], cfg, b, 1), step(s, b)))(
+        state, batch)
+    return {"cast": _flatten(cast_for_compute(p)), "loss": float(loss),
+            "grads": _flatten(grads),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "new_params": _flatten(new_state["params"])}
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +276,11 @@ def _reference_main(out_path: str) -> None:
                 "loss": float(loss), "logits": np.asarray(logits),
                 "grads": _flatten(grads)}
         out["cases"][case] = res
+    # (g) the C2 check
+    cfg = make_config(configs, C2_CASE, remat=False)
+    c2_params = offgrid_vectors(out["cases"][C2_CASE]["params"])
+    out["c2"] = {"params": c2_params, **reference_train_step(
+        cfg, c2_params, jbatch(case_batch(cfg)))}
     base = make_config(configs, "dense")
     params = init_params(jax.random.PRNGKey(0), base)
     batch = jbatch(case_batch(base, LONG_S))
@@ -371,7 +428,8 @@ def leaves_of(tree) -> dict:
     """{path: numpy} of a tree in the reference's layout (numpy leaves) or
     of the port's parameter-shaped tree (layers stacked first)."""
     from repro_torch.convert import flat_leaves, stack_layers
-    if isinstance(tree, dict) and isinstance(tree.get("layers"), list):
+    if isinstance(tree, dict) and any(isinstance(v, list)
+                                      for v in tree.values()):
         tree = stack_layers(tree)
     return {k: (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
             for k, v in flat_leaves(tree).items()}
@@ -654,16 +712,84 @@ def test_compress_decompress_matches_reference(reference, name):
         np.testing.assert_array_equal(err.numpy(), err_r)
 
 
-def test_compressed_and_sharded_paths_raise():
-    """What needs a multi-pod mesh raises, naming ROADMAP A11."""
-    from repro_torch.train import CompressionConfig, make_train_step
-    from repro_torch.train.compression import compressed_psum
-    from repro_torch.train.optimizer import AdamWConfig
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_train_step(port_cfg("dense"), AdamWConfig(),
-                        CompressionConfig(enabled=True))
-    with pytest.raises(NotImplementedError, match="A11"):
-        compressed_psum({}, {}, CompressionConfig(True), "pod", 2)
+# ---------------------------------------------------------------------------
+# (g) the compute cast (ROADMAP C2)
+# ---------------------------------------------------------------------------
+
+def _bits(a) -> np.ndarray:
+    """Raw bits of a tensor or numpy array (bf16 from either side)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        a = a.numpy()
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else \
+        a.view(np.uint8)
+
+
+def assert_cast_matches_reference(params: dict, want: dict) -> None:
+    """The port's ``cast_for_compute`` of ``params``, layers stacked, has
+    the reference's leaves with its dtypes and bits (``want``: the
+    reference's cast, numpy leaves)."""
+    from repro_torch.convert import flat_leaves, stack_layers
+    from repro_torch.train.trainer import cast_for_compute
+    got = flat_leaves(stack_layers(cast_for_compute(params)))
+    want = flat_leaves(want)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert str(got[k].dtype).removeprefix("torch.") == w.dtype.name, \
+            (k, got[k].dtype, w.dtype)
+        np.testing.assert_array_equal(_bits(got[k]), _bits(w), err_msg=k)
+
+
+def assert_step_matches_reference(cfg, params: dict, batch: dict,
+                                  want: dict, label: str) -> None:
+    """From ``params`` with AdamW's zero moments: the trainer's loss and
+    gradients and one ``make_train_step`` against the reference's
+    (``reference_train_step``), within repro_torch.testing.train's bounds:
+    the loss within LOSS_RTOL (relative), every gradient within GRAD_TOL /
+    GRAD_L2, grad_norm within GRAD_L2 (relative); and AdamW fed the
+    reference's gradients gives its parameters within ADAMW_TOL of each
+    leaf's largest (weight decay on the per-layer vectors included)."""
+    from repro_torch.testing.train import LOSS_RTOL
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.trainer import _grads_and_loss
+    loss, grads = _grads_and_loss(params, cfg, batch, 1)
+    assert abs(float(loss) - want["loss"]) <= LOSS_RTOL * abs(want["loss"])
+    assert_grads_close(leaves_of(grads), leaves_of(want["grads"]), label)
+    opt_cfg = AdamWConfig(**C2_OPT)
+    state = {"params": params, "opt": adamw_init(params)}
+    _, m = make_train_step(cfg, opt_cfg)(state, batch)
+    w = want["metrics"]
+    assert abs(float(m["loss"]) - w["loss"]) <= LOSS_RTOL * abs(w["loss"])
+    assert abs(float(m["grad_norm"]) - w["grad_norm"]) <= \
+        GRAD_L2 * w["grad_norm"], (float(m["grad_norm"]), w["grad_norm"])
+    assert abs(float(m["lr"]) - w["lr"]) <= SCHEDULE_TOL * opt_cfg.lr
+    new_p, _, _ = adamw_update(params, port_tree(want["grads"], cfg),
+                               adamw_init(params), opt_cfg)
+    got, ref = leaves_of(new_p), leaves_of(want["new_params"])
+    assert sorted(got) == sorted(ref)
+    for k, r in ref.items():
+        assert np.abs(got[k] - r).max() <= ADAMW_TOL * np.abs(r).max(), k
+
+
+def test_compute_cast_matches_reference(reference):
+    """ROADMAP C2: from a state whose vectors lie off the bf16 grid, the
+    port's compute cast gives the reference's dtypes and bits leaf by leaf
+    (per-layer norms and qk-norms bf16, the final norm f32)."""
+    cfg = port_cfg(C2_CASE, remat=False)
+    assert_cast_matches_reference(
+        port_tree(reference["c2"]["params"], cfg), reference["c2"]["cast"])
+
+
+def test_train_step_from_offgrid_vectors_matches_reference(reference):
+    """One train step of the attention family from the off-grid state
+    against the reference's (assert_step_matches_reference)."""
+    want = reference["c2"]
+    cfg = port_cfg(C2_CASE, remat=False)
+    assert_step_matches_reference(cfg, port_tree(want["params"], cfg),
+                                  port_batch(case_batch(cfg)), want,
+                                  C2_CASE)
 
 
 def _train_data(cfg):
