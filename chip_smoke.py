@@ -44,7 +44,7 @@ printing JSON lines:
                  same assertions, and beside them the packed pages' bytes
                  against phase 3's pages at the same depth; then its
                  decode step split as in phase 3
-  5. guard    -- the serving guard on the first 16 of the same layers
+  5. guard    -- the serving guard on the first 8 of the same layers
                  (GUARD_LAYERS), with
                  a bf16 and an m2xfp-packed KV cache: 12 requests (prompts
                  of 16-64 tokens, 16 new tokens, 8 slots) fault-free with
@@ -100,15 +100,25 @@ printing JSON lines:
                  relative to MXFP4's and EBW, the first 256 rows equal to
                  the CPU's bit for bit
   6c. mesh    -- distribution and launch (ROADMAP A11) on a one-rank NCCL
-                 process group: phase 3's weights cut to their first 2
-                 layers (MESH_LAYERS) placed by param_shardings on a 1 x 1
-                 ("data", "model") mesh, the engine's caches by
-                 cache_shardings, phase 3's traffic served through #1 (7
+                 process group: phase 3's weights cut to their first
+                 layer (MESH_LAYERS) placed by param_shardings on a 1 x 1
+                 ("data", "model") mesh, an engine built under that mesh
+                 (its caches placed by cache_shardings) serving phase 3's
+                 traffic through the tensor-parallel dispatch
+                 (repro_torch.distributed.tp, ROADMAP A13) into #1 (7
                  launches a layer a launch) with the tokens of the same
                  layers served unplaced and every placed leaf's local bytes
                  the source's; one sharded (ZeRO-3) train step at full
-                 width and 2 layers bit-equal to make_train_step (loss,
-                 grad_norm, lr, parameters, moments); compressed_psum over
+                 width and 2 layers through the same dispatch, bit-equal
+                 to make_train_step (loss, grad_norm, lr, parameters,
+                 moments); then the ``tp`` lines: one full-width layer's
+                 seven projections cut as t = 2 and t = 4 ranks would hold
+                 them (column shards of wq, wk, wv, gate and up; row
+                 shards of wo and down), #1 (m2xfp) and #2 (mxfp4) at M = 8
+                 on every shard against their plain versions, each row
+                 projection's partials summed in rank order within
+                 TP_BOUND of the whole launch, each shard's time (L2
+                 flushed) beside the whole launch's; compressed_psum over
                  a one-pod mesh bit-equal to compress_decompress on one
                  full-width layer's gradient leaves; pipeline_apply with
                  one stage equal to the stage; the dry-run's bytes per rank
@@ -120,7 +130,7 @@ printing JSON lines:
                  (the QKV biases and qk-norm weights seeded too, not
                  init's zeros and ones: repro_torch.testing.
                  fill_attention_extras), with the codecs phase's traffic:
-                 qwen2-0.5b at all 24 layers (QKV bias, the tied
+                 qwen2-0.5b at its first 8 of 24 (QKV bias, the tied
                  151,936-row head, 128-column wk/wv), qwen3-8b at its first
                  4 of 36 (qk-norm), and gemma2-9b at its first 4 of 42 (2
                  local/global pairs, its window of 4096, soft-caps 50 and
@@ -145,7 +155,7 @@ printing JSON lines:
                  every valid position finite and equal bit for bit, caches
                  equal, the m2xfp kernel launched 7 times per layer per
                  launch. Mixture-of-experts through the engine with the
-                 codecs phase's traffic: olmoe-1b-7b at its first 8 of 16 (64
+                 codecs phase's traffic: olmoe-1b-7b at its first 4 of 16 (64
                  experts, packed (K, E, N)) and mixtral-8x22b at its first
                  2 of 56 (8 experts, dense bf16, as the reference leaves
                  them); for each of the four models, before its runs, the
@@ -195,7 +205,13 @@ printing JSON lines:
                  the loss falls is printed) beside its time (CUDA events)
                  and the peak memory, no kernel launched (the reference's
                  training reaches none); the first 3 "none" steps run
-                 twice and give the same bits; the none-trained model,
+                 twice and give the same bits, then once under each
+                 REPRO_REMAT_POLICY that keeps products (dots,
+                 dots_no_batch: REMAT_POLICIES) with the bits of "none"
+                 (losses, parameters and moments; asserted), each policy's
+                 step times, peak memory and the peak of one forward and
+                 backward above the held state printed; the none-trained
+                 model,
                  cast to its compute dtypes and packed m2xfp, served
                  through the engine with the codecs phase's traffic (phase
                  3's assertions), then loss_fn under serve on a held-out
@@ -254,6 +270,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -280,9 +297,13 @@ N_SLOTS, MAX_LEN = 8, 512
 # phase the script took 1145.8 s of its 1200 s limit on a slow host (guard
 # phase 304.9 s, mxfp4 77.9 s, variants 138.7 s; NVIDIA H100 80GB HBM3,
 # 700.00 W). With the train phase, mxfp4 runs 2 layers (42.9 s at 8
-# layers, 21.9-30.7 s at 4).
+# layers, 21.9-30.7 s at 4). The guard runs 8 layers since the tensor-
+# parallel phase: on a slow host the script took 1189.1 s of its 1200 s
+# (guard 170.4 s at 16 layers, phase 3 366.9 s; NVIDIA H100 80GB HBM3,
+# 700.00 W), so the earlier paths' depths were cut: the guard, the mesh
+# phase (MESH_LAYERS), qwen2-0.5b (VARIANTS) and olmoe (FAMILY_MOE).
 MXFP4_LAYERS = 2
-GUARD_LAYERS = 16
+GUARD_LAYERS = 8
 # The packed-KV serve phase (an earlier path since the guard phase came)
 # runs at a quarter of the depth: with it at full depth and the guard phase
 # the script took 1170 s of its 1200 s limit (packed-KV phase 540 s, guard
@@ -309,8 +330,10 @@ CODEC_WEIGHT_COLS = 512     # the CPU side of the Sg-EM search is slow at N
 # min(4096, 128) positions) and its global ring both wrap, as the
 # reference's engine allows for a sliding-window configuration.
 # With the train phase qwen3-8b and gemma2-9b run 4 layers (2 local/global
-# pairs; the phase 142.5-166.4 s at 8).
-VARIANTS = [("qwen2-0.5b", 24, MAX_LEN, (16, 64)),
+# pairs; the phase 142.5-166.4 s at 8), and since the tensor-parallel
+# phase qwen2-0.5b its first 8 of 24 (the phase 118.6 s at 24 on a slow
+# host: see GUARD_LAYERS).
+VARIANTS = [("qwen2-0.5b", 8, MAX_LEN, (16, 64)),
             ("qwen3-8b", 4, MAX_LEN, (16, 64)),
             ("gemma2-9b", 4, 128, (96, 160))]
 # Families phase (ROADMAP A6c, A6d), full widths, m2xfp weights from SEED,
@@ -331,11 +354,13 @@ VARIANTS = [("qwen2-0.5b", 24, MAX_LEN, (16, 64)),
 # mixtral 12.9 s; 159.0 s for the phase alone, musicgen 15.2 s of it;
 # NVIDIA H100 80GB HBM3, 700.00 W), so musicgen runs its first 8 layers.
 # With the train phase olmoe runs its first 8 of 16 (its device-bound
-# serves; the phase 128.9-151.9 s at 16).
+# serves; the phase 128.9-151.9 s at 16), and since the tensor-parallel
+# phase its first 4 (the phase 108.3 s at 8 on a slow host: see
+# GUARD_LAYERS).
 FAMILY_EMBED = [("musicgen-large", 8), ("pixtral-12b", 8)]
 FAMILY_POSITIONS = 32
 FAMILY_LENGTHS = (32, 30, 25, 20, 13, 8, 5, 1)
-FAMILY_MOE = [("olmoe-1b-7b", 8), ("mixtral-8x22b", 2)]
+FAMILY_MOE = [("olmoe-1b-7b", 4), ("mixtral-8x22b", 2)]
 # Train phase (ROADMAP A8): full-width paper-llama2-7b at its first
 # TRAIN_LAYERS layers. Plain single-device AdamW holds f32 masters, m and v,
 # f32 gradients and a bf16 compute copy: 18 B a parameter, 121 GB at 32
@@ -370,6 +395,8 @@ RECURRENT_FAULT_SLOT = 3
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 2048, 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
 TRAIN_REPEAT_STEPS = 3
+REMAT_POLICIES = ("dots", "dots_no_batch")
+REMAT_FLAG = "REPRO_REMAT_POLICY"
 TRAIN_CHECK = (1, 1, 64)
 # Obs phase (ROADMAP A7): the telemetry of the serve path on the first
 # OBS_LAYERS layers of phase 3's m2xfp weights (depth cut for the time
@@ -2221,6 +2248,7 @@ def train_phase(device, kern, kernels) -> int:
                                            step_card_vs_cpu)
     from repro_torch.train import (AdamWConfig, cast_for_compute,
                                    make_train_state, make_train_step)
+    from repro_torch.train.trainer import _grads_and_loss
     from repro_torch.tree import tree_leaves
     cfg = get_config("paper-llama2-7b", n_layers=TRAIN_LAYERS)
     to_dev = lambda b: {k: torch.from_numpy(v).to(device)  # noqa: E731
@@ -2240,12 +2268,13 @@ def train_phase(device, kern, kernels) -> int:
 
     losses, step_ms = {}, {}
 
-    def train(quant, steps):
+    def train(quant, steps, label=None):
         """``steps`` steps from a fresh state; returns the state. Raises if
-        a kernel launched."""
+        a kernel launched. ``label`` (default ``quant``) names the run."""
         c = dataclasses.replace(cfg, quant=quant)
         step_fn = make_train_step(c, opt)
         state = fresh(c)
+        quant, tag = label or quant, quant
         losses[quant], step_ms[quant] = [], []
         for k in kernels:
             k.launches = 0
@@ -2259,8 +2288,9 @@ def train_phase(device, kern, kernels) -> int:
             vals = _finite_metrics(quant, i, m)
             losses[quant].append(vals["loss"])
             step_ms[quant].append(t0.elapsed_time(t1))
-            emit("train_step", quant=quant, quant_format=c.quant_format,
-                 step=i, step_ms=step_ms[quant][-1], **vals)
+            emit("train_step", quant=tag, run=quant,
+                 quant_format=c.quant_format, step=i,
+                 step_ms=step_ms[quant][-1], **vals)
         launched = {k.name: k.launches for k in kernels if k.launches}
         if launched:
             raise AssertionError(f"train {quant} launched {launched}: the "
@@ -2277,14 +2307,62 @@ def train_phase(device, kern, kernels) -> int:
         t_lap = now
 
     # the first TRAIN_REPEAT_STEPS "none" steps twice: the same bits
-    runs = [train("none", TRAIN_REPEAT_STEPS) for _ in range(2)]
+    runs = [train("none", TRAIN_REPEAT_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    runs.append(train("none", TRAIN_REPEAT_STEPS))
+    remat = {"none": dict(step_ms=step_ms["none"],
+                          peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                          losses=losses["none"])}
     same = all(torch.equal(a, b) for a, b in zip(*map(tree_leaves, runs)))
-    del runs
+    del runs[1]
+
+    def grads_peak(params) -> int:
+        """Bytes allocated above the held state at the peak of one
+        forward and backward of batch 0 (the remat'd activations, the
+        compute casts, the gradients): what a policy changes."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _grads_and_loss(params, cfg, batches[0], 1)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+    remat["none"]["loss_and_grads_peak_above_base_bytes"] = grads_peak(
+        runs[0]["params"])
     if not same:
         raise AssertionError(f"two card runs of {TRAIN_REPEAT_STEPS} train "
                              f"steps gave different bits")
     emit("train_deterministic", steps=TRAIN_REPEAT_STEPS, same_bits=same)
     lap("repeat")
+    # the same steps under each REPRO_REMAT_POLICY that keeps products:
+    # the bits of "none" (losses, and the parameters and moments, which
+    # carry every gradient), each policy's step time and peak memory
+    for policy in REMAT_POLICIES:
+        os.environ[REMAT_FLAG] = policy        # written, read by the port
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            st = train("none", TRAIN_REPEAT_STEPS, label=policy)
+            peak = torch.cuda.max_memory_allocated()
+            grads = grads_peak(st["params"])
+        finally:
+            del os.environ[REMAT_FLAG]
+        bits = all(torch.equal(a, b) for a, b in zip(tree_leaves(st),
+                                                     tree_leaves(runs[0])))
+        bits &= losses[policy] == remat["none"]["losses"]
+        remat[policy] = dict(step_ms=step_ms[policy], peak_memory_bytes=peak,
+                             loss_and_grads_peak_above_base_bytes=grads,
+                             losses=losses[policy], bits_equal_none=bits)
+        del st
+        if not bits:
+            raise AssertionError(f"remat policy {policy}: the train steps "
+                                 f"differ from 'none'")
+    emit("train_remat", model=cfg.name, layers=TRAIN_LAYERS,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_REPEAT_STEPS,
+         policies=remat)
+    del runs
+    lap("remat")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2756,7 +2834,16 @@ def flash_phase(timer, gen, device, kernels):
 # layer's gradient leaves; pipeline_apply with one stage (MESH_PIPE:
 # microbatches, rows, width); the dry-run's bytes per rank of every cell on
 # a 1 x 1 mesh beside the card's memory, and MESH_CELL materialised.
-MESH_LAYERS = 2
+# One layer since the tensor-parallel dispatch (the phase 48.0 s at 2 on a
+# slow host: see GUARD_LAYERS).
+MESH_LAYERS = 1
+# the tp lines: the shard counts, the rows, and the bound of the sum of a
+# row projection's partials against the whole launch -- each launch within
+# TOLERANCE of its exact product, plus t f32 roundings of partial sums no
+# larger than the sum of |partials| (tests/test_torch_tp.py derives it)
+TP_RANKS = (2, 4)
+TP_M = 8
+TP_BOUND = "TOLERANCE(whole) + sum_r TOLERANCE(r) + t ulp(sum_r |p_r|)"
 MESH_TRAFFIC = (REQUESTS, TOKENS, (16, 128))
 MESH_TRAIN = (2, 512)
 MESH_PIPE = (4, 8, 4096)
@@ -2848,12 +2935,12 @@ def mesh_phase(params, device, kern, kernels) -> int:
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.distributed.pipeline import pipeline_apply
-    from repro_torch.distributed.sharding import (cache_shardings,
-                                                  gather_tree, local_tree,
+    from repro_torch.distributed.sharding import (local_tree,
                                                   param_shardings,
-                                                  place_tree)
+                                                  place_tree, use_sharding)
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.testing.distributed import Recorder
     from repro_torch.train import (AdamWConfig, CompressionConfig,
                                    compress_decompress, compressed_psum,
                                    make_sharded_train_step, make_train_state,
@@ -2876,36 +2963,44 @@ def mesh_phase(params, device, kern, kernels) -> int:
         prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
                    for n in rng.choice(np.arange(lo, hi + 1), n_requests)]
 
-        def serve(p, place_caches):
-            eng = ServeEngine(p, cfg, n_slots=N_SLOTS, max_len=MAX_LEN,
-                              prefill_chunk=CHUNK, device=device)
-            caches_equal = None
-            if place_caches:
-                pc = place_tree(eng.caches, cache_shardings(eng.caches,
-                                                            mesh))
-                caches_equal = _placed_bytes_equal(pc, eng.caches)
-                eng.caches = local_tree(pc)
-            outs = eng.generate(prompts, n_tokens)
-            torch.cuda.synchronize()
-            return eng, outs, caches_equal
+        def engine(p):
+            return ServeEngine(p, cfg, n_slots=N_SLOTS, max_len=MAX_LEN,
+                               prefill_chunk=CHUNK, device=device)
 
-        _, want, _ = serve(src, False)
+        plain = engine(src)
+        want = plain.generate(prompts, n_tokens)
+        torch.cuda.synchronize()
+        with use_sharding(mesh):
+            eng = engine(placed)
+        caches_equal = _placed_bytes_equal(eng.caches, plain.caches)
+        del plain
         for k in kernels:                 # the path's counts start here
             k.launches = 0
-        eng, got, caches_equal = serve(gather_tree(placed), True)
+        with Recorder() as rec:
+            got = eng.generate(prompts, n_tokens)
+            torch.cuda.synchronize()
         launches = kern.launches
         others = {k.name: k.launches for k in kernels if k is not kern}
         expected = 7 * MESH_LAYERS * eng.stats.steps
+        dispatched = {kind: sum(1 for g in rec.gemms if g["kind"] == kind)
+                      for kind in ("column", "row", "replicated")}
         emit("mesh", check="serve", mesh="1x1 (data, model)",
              layers=MESH_LAYERS, requests=len(prompts),
              tokens_equal=got == want, params_local_bytes_equal=params_equal,
              caches_local_bytes_equal=caches_equal, kernel=kern.name,
-             launches=launches, launches_expected=expected)
+             launches=launches, launches_expected=expected,
+             tp_dispatches=dispatched,
+             tp_dispatches_expected={"column": 5 * MESH_LAYERS
+                                     * eng.stats.steps + eng.stats.steps,
+                                     "row": 2 * MESH_LAYERS
+                                     * eng.stats.steps})
         if got != want or not params_equal or not caches_equal \
-                or launches != expected or any(others.values()):
+                or launches != expected or any(others.values()) \
+                or dispatched["row"] != 2 * MESH_LAYERS * eng.stats.steps:
             raise AssertionError(f"mesh serve: tokens equal {got == want}, "
                                  f"bytes {params_equal}/{caches_equal}, "
-                                 f"launches {launches}/{expected} {others}")
+                                 f"launches {launches}/{expected} {others}, "
+                                 f"dispatches {dispatched}")
         del eng, placed, src
         # 2. train: the sharded step against the plain step
         tcfg = get_config("paper-llama2-7b", n_layers=MESH_LAYERS)
@@ -2922,10 +3017,12 @@ def mesh_phase(params, device, kern, kernels) -> int:
         plain_s = time.perf_counter() - t1
         placed = place_tree(state, train_state_shardings(state, mesh))
         t1 = time.perf_counter()
-        sharded, sm = make_sharded_train_step(tcfg, opt, mesh)(placed,
-                                                                batch)
-        torch.cuda.synchronize()
+        with Recorder() as rec:
+            sharded, sm = make_sharded_train_step(tcfg, opt, mesh)(placed,
+                                                                    batch)
+            torch.cuda.synchronize()
         sharded_s = time.perf_counter() - t1
+        train_dispatches = len(rec.gemms)
         got = local_tree(sharded)
         same = {k: bool(torch.equal(pm[k], sm[k]))
                 for k in ("loss", "grad_norm", "lr")}
@@ -2936,9 +3033,11 @@ def mesh_phase(params, device, kern, kernels) -> int:
         emit("mesh", check="train", mesh="1x1 (data, model)",
              layers=MESH_LAYERS, batch=b, seq=s, loss=float(sm["loss"]),
              grad_norm=float(sm["grad_norm"]), bits_equal=same,
-             plain_step_s=plain_s, sharded_step_s=sharded_s)
-        if not all(same.values()):
-            raise AssertionError(f"mesh train: {same}")
+             plain_step_s=plain_s, sharded_step_s=sharded_s,
+             tp_dispatches=train_dispatches)
+        if not all(same.values()) or not train_dispatches:
+            raise AssertionError(f"mesh train: {same}, "
+                                 f"{train_dispatches} dispatches")
         # 3. compressed_psum over one pod on layer 0's gradient leaves
         grads = {k: torch.randn(v.shape, device=device, generator=gen)
                  for k, v in _flat_layer(state["params"]["layers"][0])}
@@ -2962,6 +3061,7 @@ def mesh_phase(params, device, kern, kernels) -> int:
             raise AssertionError("compressed_psum over one pod differs "
                                  "from compress_decompress")
         del grads, err, red, new_err
+        tp_shards(device)
         # 4. pipeline_apply with one stage
         n_micro, rows, width = MESH_PIPE
         ws = torch.randn((1, width, width), device=device,
@@ -2988,6 +3088,93 @@ def mesh_phase(params, device, kern, kernels) -> int:
     finally:
         dist.destroy_process_group()
     return launches
+
+
+def _ulp_f32(s: torch.Tensor) -> torch.Tensor:
+    return torch.where(s > 0, torch.exp2(torch.floor(torch.log2(s)) - 23),
+                       torch.zeros_like(s))
+
+
+def tp_shards(device) -> None:
+    """The ``tp`` lines (module docstring, phase 6c): per codec and shard
+    count, every column and row shard of one full-width paper-llama2-7b
+    layer's seven projections at M = TP_M, cut from the whole weight's
+    packed streams as ``model_local`` gives a rank its shard (columns, or
+    K rows at 32-row group boundaries)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import layout, ref
+    from repro_torch.kernels.m2xfp_matmul import KERNEL as M2XFP
+    from repro_torch.kernels.mxfp4_matmul import KERNEL as MXFP4
+    cfg = get_config("paper-llama2-7b")
+    d, q, ff = cfg.d_model, cfg.n_heads * cfg.hd, cfg.d_ff
+    kv = cfg.n_kv_heads * cfg.hd
+    projections = [("wq", d, q, "column"), ("wk", d, kv, "column"),
+                   ("wv", d, kv, "column"), ("wo", q, d, "row"),
+                   ("gate", d, ff, "column"), ("up", d, ff, "column"),
+                   ("down", ff, d, "row")]
+    codecs = [("m2xfp", M2XFP, layout.pack_w_sgem, ref.decode_w_sgem_ref,
+               ref.m2xfp_matmul_ref),
+              ("mxfp4", MXFP4, layout.pack_w_mxfp4, ref.decode_w_mxfp4_ref,
+               ref.mxfp4_matmul_ref)]
+    timer = Timer(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    t0 = time.perf_counter()
+    for codec, kern, pack, decode, plain in codecs:
+        for name, k, n, kind in projections:
+            w = torch.randn(k, n, generator=gen, device=device) * 0.02
+            wp = pack(w)
+            del w
+            x = torch.randn(TP_M, k, generator=gen, device=device).to(
+                torch.bfloat16)
+            whole_dec = decode(wp)
+            _, whole, whole_tol, _, _ = kernel_vs_plain(
+                f"tp {codec} {name}", kern, wp, whole_dec, plain, x, TP_M)
+            whole_ms = timer(lambda: kern(x, wp))
+            for t in TP_RANKS:
+                shards, partials, tols, ratios, errs = [], [], [], [], []
+                for r in range(t):
+                    if kind == "column":
+                        cols = slice(r * n // t, (r + 1) * n // t)
+                        sp = {s: v[:, cols].contiguous()
+                              for s, v in wp.items()}
+                        xs = x
+                    else:
+                        sp = {s: v[r * v.shape[0] // t:(r + 1) * v.shape[0]
+                                   // t].contiguous() for s, v in wp.items()}
+                        xs = x[:, r * k // t:(r + 1) * k // t].contiguous()
+                    _, got, tol, ratio, err = kernel_vs_plain(
+                        f"tp {codec} {name} t={t} r={r}", kern, sp,
+                        decode(sp), plain, xs, TP_M)
+                    shards.append(timer(lambda: kern(xs, sp)))
+                    partials.append(got)
+                    tols.append(tol)
+                    ratios.append(ratio)
+                    errs.append(err)
+                row = {}
+                if kind == "row":
+                    summed = partials[0]
+                    for p in partials[1:]:
+                        summed = summed + p
+                    s_abs = sum(p.abs() for p in partials)
+                    allowed = whole_tol + sum(tols) + t * _ulp_f32(s_abs)
+                    diff = (summed - whole).abs()
+                    row = dict(row_sum_max_abs_err=float(diff.max()),
+                               row_sum_max_ratio_to_bound=float(
+                                   (diff / allowed.clamp_min(1e-38)).max()),
+                               bound=TP_BOUND)
+                    if bool((diff > allowed).any()):
+                        raise AssertionError(
+                            f"tp {codec} {name} t={t}: the row partials' "
+                            f"sum is outside {TP_BOUND}")
+                emit("tp", codec=codec, kernel=kern.name, projection=name,
+                     kind=kind, K=k, N=n, t=t, M=TP_M,
+                     shard=(k, n // t) if kind == "column" else (k // t, n),
+                     tolerance=TOLERANCE, max_ratio_to_tolerance=max(ratios),
+                     max_abs_err=max(errs), shard_kernel_ms=shards,
+                     whole_kernel_ms=whole_ms, **row)
+                del partials, tols
+            del wp, whole_dec, whole, whole_tol, x
+    emit("tp", check="seconds", seconds=time.perf_counter() - t0)
 
 
 def _flat_layer(layer: dict, prefix: str = ""):

@@ -1,19 +1,33 @@
-"""Typed registry of the port's ``REPRO_*`` environment flags (the part of
-repro.core.envflags the port needs: the string flags ``REPRO_OBS``,
-``REPRO_OBS_DIR``, ``REPRO_KV_QUANT`` and ``REPRO_RULES_JSON``, and the
-int flag ``REPRO_MOE_GROUP``).
+"""Typed registry of the port's ``REPRO_*`` environment flags (port of
+repro.core.envflags): the string flags ``REPRO_OBS``, ``REPRO_OBS_DIR``,
+``REPRO_KV_QUANT``, ``REPRO_RULES_JSON`` and ``REPRO_REMAT_POLICY``, the
+int flags ``REPRO_MOE_GROUP``, ``REPRO_ATTN_KV_CHUNK`` and
+``REPRO_ATTN_Q_TILE``, and the bool flags ``REPRO_GATHER_PACKED`` and
+``REPRO_BF16_TP_REDUCE``.
 
-A flag is *declared* once (name, type, default, docstring, an int's
-``minimum``) and *read* through the accessors, which re-read the
-environment on every call, so tests can monkeypatch ``os.environ`` freely
-and nothing is cached behind their back. Every flag read of the port goes
-through this module: a flag the port comes to read is declared here, with
-the reference's parsing and error text (its bool kind and ``choices`` are
-not copied until a flag needs them).
+Two of the reference's flags have no counterpart: ``REPRO_SERVE_KERNEL``
+and ``REPRO_FAITHFUL_DOTS`` choose between XLA lowerings (the Pallas
+kernel or the XLA decode mirror; bf16 or f32 dot operands in the lowered
+HLO). The port has no lowering to choose: a product picks its kernel by
+the tensor's device (a CUDA tensor runs the hand-written kernel, a CPU
+tensor its plain version, ``models/quant.py``) and keeps bf16 operands
+with f32 accumulation on both (``models/numerics.py``).
 
-Parsing: ``str`` -- unset returns the default; ``int`` -- unset returns
-the default (None for an optional flag), a non-integer or a value below
-``minimum`` raises ``ValueError`` with the reference's message.
+A flag is *declared* once (name, type, default, docstring, a string's
+``choices``, an int's ``minimum``) and *read* through the accessors, which
+re-read the environment on every call, so tests can monkeypatch
+``os.environ`` freely and nothing is cached behind their back. Every flag
+read of the port goes through this module: a flag the port comes to read
+is declared here, with the reference's parsing and error text.
+
+Parsing (the reference's):
+  * ``bool`` -- true only for the raw value ``"1"``; unset, empty or
+    anything else is false;
+  * ``int`` -- unset returns the default (None for an optional flag), a
+    non-integer or a value below ``minimum`` raises ``ValueError``
+    (``env_int``);
+  * ``str`` -- unset returns the default; with ``choices`` declared, any
+    other raw value (``""`` included) raises ``ValueError`` listing them.
 """
 from __future__ import annotations
 
@@ -22,9 +36,9 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["EnvFlag", "declare", "defined_flags", "get_raw", "get_str",
-           "get_int"]
+           "get_int", "get_bool", "env_int"]
 
-_KINDS = ("int", "str")
+_KINDS = ("bool", "int", "str")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,23 +46,26 @@ class EnvFlag:
     """One declared environment flag."""
 
     name: str
-    kind: str                                # "int" | "str"
+    kind: str                                # "bool" | "int" | "str"
     default: Any
     help: str
-    minimum: Optional[int] = None            # int flags only
+    choices: Optional[Tuple[str, ...]] = None   # str flags only
+    minimum: Optional[int] = None               # int flags only
 
 
 _FLAGS: Dict[str, EnvFlag] = {}
 
 
 def declare(name: str, kind: str, default: Any, help: str, *,
+            choices: Optional[Tuple[str, ...]] = None,
             minimum: Optional[int] = None) -> EnvFlag:
     """Register a flag. Redeclaring with an identical spec is a no-op; a
     conflicting spec is an error."""
     if kind not in _KINDS:
         raise ValueError(f"flag {name!r}: kind must be one of {_KINDS}, "
                          f"got {kind!r}")
-    flag = EnvFlag(name, kind, default, help, minimum=minimum)
+    flag = EnvFlag(name, kind, default, help, choices=choices,
+                   minimum=minimum)
     prev = _FLAGS.get(name)
     if prev is not None and prev != flag:
         raise ValueError(f"flag {name!r} already declared with a different "
@@ -87,31 +104,54 @@ def _kind_checked(name: str, kind: str) -> EnvFlag:
     return flag
 
 
-def get_str(name: str) -> Optional[str]:
-    """Read of a declared string flag: its default when unset."""
-    flag = _kind_checked(name, "str")
-    raw = os.environ.get(name)
-    return flag.default if raw is None else raw
-
-
-def get_int(name: str) -> Optional[int]:
-    """Read of a declared int flag: its default when unset; a non-integer
-    or a value below its ``minimum`` raises ``ValueError``."""
-    flag = _kind_checked(name, "int")
+def env_int(name: str, default: Optional[int],
+            minimum: Optional[int] = 1) -> Optional[int]:
+    """Integer read of ``name`` with the reference's validation (usable for
+    a variable that is not a declared flag): unset gives ``default``; a
+    non-integer or a value below ``minimum`` raises ``ValueError`` -- a
+    zero or negative chunk or tile would break the tiling far from the
+    setting."""
     raw = os.environ.get(name)
     if raw is None:
-        return flag.default
+        return default
     try:
         v = int(raw)
     except ValueError:
         raise ValueError(
             f"{name}={raw!r}: not an integer (unset it for the default "
-            f"{flag.default})") from None
-    if flag.minimum is not None and v < flag.minimum:
+            f"{default})") from None
+    if minimum is not None and v < minimum:
         raise ValueError(
-            f"{name}={raw!r}: must be >= {flag.minimum}; unset it for the "
-            f"default {flag.default}")
+            f"{name}={raw!r}: must be >= {minimum}; unset it for the "
+            f"default {default}")
     return v
+
+
+def get_str(name: str) -> Optional[str]:
+    """Read of a declared string flag: its default when unset; a value
+    outside its ``choices`` raises ``ValueError`` listing them."""
+    flag = _kind_checked(name, "str")
+    raw = os.environ.get(name)
+    if raw is None:
+        return flag.default
+    if flag.choices is not None and raw not in flag.choices:
+        raise ValueError(
+            f"{name}={raw!r}: expected one of "
+            f"{', '.join(repr(c) for c in flag.choices)}")
+    return raw
+
+
+def get_int(name: str) -> Optional[int]:
+    """Read of a declared int flag (``env_int`` with its default and
+    minimum)."""
+    flag = _kind_checked(name, "int")
+    return env_int(name, flag.default, flag.minimum)
+
+
+def get_bool(name: str) -> bool:
+    """Read of a declared bool flag: true only for ``"1"``."""
+    _kind_checked(name, "bool")
+    return os.environ.get(name, "") == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -136,3 +176,23 @@ declare("REPRO_MOE_GROUP", "int", None,
 declare("REPRO_RULES_JSON", "str", None,
         "JSON object of logical-sharding rule overrides for the dry-run, "
         "e.g. '{\"fsdp\": null, \"mlp\": [\"data\",\"model\"]}'.")
+declare("REPRO_REMAT_POLICY", "str", "none",
+        "Checkpoint policy of remat'd blocks (cfg.remat): 'none' keeps "
+        "only block inputs, 'dots' keeps every matrix product's output, "
+        "'dots_no_batch' keeps the products without batch axes (the "
+        "weight projections).",
+        choices=("none", "dots", "dots_no_batch"))
+declare("REPRO_ATTN_KV_CHUNK", "int", 512,
+        "KV-chunk length of the streaming train/prefill attention (read "
+        "at import of repro_torch.models.attention).", minimum=1)
+declare("REPRO_ATTN_Q_TILE", "int", 1024,
+        "Query-tile length of train/prefill attention (pairs with "
+        "REPRO_ATTN_KV_CHUNK).", minimum=1)
+declare("REPRO_GATHER_PACKED", "bool", False,
+        "Gather packed u8 weight streams along the weight-shard ('fsdp') "
+        "axis before decoding, instead of the decoded weight "
+        "(models/quant.py::decode_serving_weight).")
+declare("REPRO_BF16_TP_REDUCE", "bool", False,
+        "Round a row-parallel partial sum to bf16 before its "
+        "tensor-parallel all-reduce, which then moves half the bytes "
+        "(distributed/tp.py).")

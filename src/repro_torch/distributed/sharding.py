@@ -36,7 +36,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-import threading
+import types
 from typing import Optional
 
 import torch
@@ -52,7 +52,10 @@ __all__ = [
     "shard_nbytes",
 ]
 
-_state = threading.local()
+# the active mesh and rules: process-wide, not per thread, so that the
+# autograd engine's device threads (where a remat'd block is recomputed in
+# the backward on the card) see the mesh its forward ran under
+_state = types.SimpleNamespace()
 
 DEFAULT_RULES: dict = {
     "batch": ("pod", "data"),
@@ -228,16 +231,28 @@ def named_sharding(axes, shape=None) -> Optional[NamedSharding]:
 def constrain(x: torch.Tensor, axes) -> torch.Tensor:
     """Annotate an activation with logical axes: a no-op without a mesh.
     Inside ``use_sharding`` a DTensor is redistributed to the spec (padded
-    shardings kept up to ``_PAD_WASTE_LIMIT``, as uneven shards); a plain
-    tensor is one rank's full value and is returned as it is."""
+    shardings kept up to ``_PAD_WASTE_LIMIT``, as uneven shards): a
+    DTensor on the active mesh to the spec's placements, one on a submesh
+    (the tensor-parallel activations of ``distributed/tp.py`` live on the
+    "model" submesh) to the spec's entries for that submesh's dims, so a
+    Partial sum is reduced here. A plain tensor is one rank's full value
+    and is returned as it is."""
     mesh = active_mesh()
     if mesh is None:
         return x
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(x, DTensor):
         return x
     spec = logical_to_spec(axes, tuple(x.shape), allow_pad=True)
-    return x.redistribute(mesh, NamedSharding(mesh, spec).placements())
+    names = tuple(x.device_mesh.mesh_dim_names or ())
+    if names == tuple(mesh_axis_sizes(mesh)):
+        return x.redistribute(mesh, NamedSharding(mesh, spec).placements())
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        for a in _axes_of(entry):
+            if a in names:
+                out[names.index(a)] = Shard(d)
+    return x.redistribute(x.device_mesh, out)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,13 @@ The norm's sum of squares is folded in halves with elementwise adds, in an
 order fixed by the width alone. A library reduction on the card picks its
 order from the number of rows, so a row normed among B*T rows in chunked
 prefill could differ by an ulp from the same row normed among B in decode,
-and one ulp can flip an m2xfp top-1 and an FP4 rounding downstream."""
+and one ulp can flip an m2xfp top-1 and an FP4 rounding downstream.
+
+Under tensor parallelism (``repro_torch.distributed.tp``) an activation is
+a DTensor on the "model" submesh: the norm, the rotation, the soft-cap and
+the gated product run on its local tensor (``tp.local_apply``), so a
+replicated row is normed with the same folds as unplaced, and a
+head-sharded q or k is normed per head as there."""
 from __future__ import annotations
 
 from typing import Optional
@@ -16,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.dtypes import div_const
+from repro_torch.distributed import tp
 from .quant import init_linear, quantized_matmul
 
 __all__ = [
@@ -38,6 +45,8 @@ def _sum_halves(x: torch.Tensor) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
+    if tp.is_dtensor(x):
+        return tp.local_apply(rms_norm, x, w, eps)
     xf = x.to(torch.float32)
     var = _sum_halves(xf * xf) / xf.shape[-1]
     out = xf * torch.rsqrt(var + eps) * w.to(torch.float32)
@@ -54,6 +63,8 @@ def rope_freqs(head_dim: int, theta: float, device="cuda") -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Rotary embedding. x: (B, S, H, D); positions: (B, S) int."""
+    if tp.is_dtensor(x):
+        return tp.local_apply(apply_rope, x, positions, theta)
     inv = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
     ang = positions[..., None].to(torch.float32) * inv        # (B, S, D/2)
     cos = torch.cos(ang)[:, :, None, :]
@@ -69,6 +80,8 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     ``div_const``'s, so the card divides as the CPU does."""
     if cap is None:
         return x
+    if tp.is_dtensor(x):
+        return tp.local_apply(softcap, x, cap)
     return (cap * torch.tanh(div_const(x.to(torch.float32), cap))).to(
         x.dtype)
 
@@ -86,8 +99,13 @@ def mlp_apply(p: dict, x: torch.Tensor, quant: str = "none",
     """SwiGLU: down(silu(gate(x)) * up(x)); ``fmt`` is ``qat``'s codec."""
     g = quantized_matmul(x, p["gate"], quant, fmt)
     u = quantized_matmul(x, p["up"], quant, fmt)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    h = tp.local_apply(gated, g, u) if tp.is_dtensor(g) else gated(g, u)
     return quantized_matmul(h, p["down"], quant, fmt)
+
+
+def gated(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """SwiGLU's ``silu(g) * u``: silu in f32, cast to u's dtype."""
+    return torch.nn.functional.silu(g.to(torch.float32)).to(u.dtype) * u
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,

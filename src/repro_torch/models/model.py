@@ -38,13 +38,27 @@ The last two update the caches in place (a recurrent block's cache dict
 gets its new tensors); all return f32 logits.
 ``forward`` and ``loss_fn`` are differentiable (autograd) under ``quant``
 ``none`` and ``qat``; under ``serve`` they run the packed GEMMs.
+
+Tensor parallelism (ROADMAP A13; ``repro_torch.distributed.tp``): with
+placed parameters under ``use_sharding`` the attention families compute on
+each rank's weight shards, the activations carrying the reference's
+``constrain`` annotations: the embedding is looked up in this rank's
+vocabulary rows and summed over "model" (each token's row is on one
+rank), the blocks run their products on the shards (``models/quant.py``,
+``attention.py``, ``moe.py``), the head is column-parallel over the
+vocabulary, and the entry points return the whole logits on every rank.
+The recurrent families take no placed parameters here: their sharded
+train step gathers them (``train/trainer.py``).
 """
 from __future__ import annotations
 
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.core import envflags
 from repro_torch.core.codecs import get_codec, packed_codecs
+from repro_torch.distributed import tp
+from repro_torch.distributed.sharding import constrain
 from . import attention as attn
 from . import mamba2 as mb
 from . import xlstm as xl
@@ -253,11 +267,41 @@ def _embed_in(params, cfg, batch) -> torch.Tensor:
     """batch {"embeds": (B, T, d) bf16} under ``input_mode="embeddings"``,
     else {"tokens": (B, T)} looked up in ``embed``."""
     if cfg.input_mode == "embeddings":
-        return batch["embeds"]
+        h = batch["embeds"]
+        if tp.is_dtensor(params["embed"]):
+            h = tp.wrap(h, tp.replicate())
+        return constrain(h, ("batch", "seq", "embed"))
     table = params["embed"]
+    if tp.is_dtensor(table):
+        h = _embed_tp(table, batch["tokens"])
+        return constrain(h, ("batch", "seq", "embed"))
+    return _lookup(table, batch["tokens"])
+
+
+def _lookup(table, tokens):
     if torch.is_grad_enabled() and table.requires_grad:
-        return _EmbedLookup.apply(table, batch["tokens"])
-    return table[batch["tokens"]]
+        return _EmbedLookup.apply(table, tokens)
+    return table[tokens]
+
+
+def _embed_tp(table, tokens):
+    """Vocabulary-parallel lookup: this rank's rows of the table (its
+    shard along "model", gathered along "fsdp") give the tokens they hold
+    and zeros elsewhere, a Partial sum over "model" that the caller's
+    ``constrain`` reduces: one rank holds each token's row, so the sum is
+    that row (a -0.0 entry comes back +0.0). A table replicated over
+    "model" is looked up whole."""
+    from torch.distributed.tensor import Partial
+    local = tp.model_local(table)
+    if not tp.model_placement(table).is_shard():
+        return tp.wrap(_lookup(local, tokens), tp.replicate())
+    n = local.shape[0]
+    idx = tokens - tp.tp_rank() * n
+    inside = (idx >= 0) & (idx < n)
+    rows = _lookup(local, idx.clamp(0, n - 1))
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return tp.wrap(rows, Partial())
 
 
 def _ffn(lp, h, cfg):
@@ -269,15 +313,36 @@ def _ffn(lp, h, cfg):
 
 def _logits(params, cfg, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if tp.is_dtensor(h):
+        return _logits_tp(params, cfg, h)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return softcap(dot_f32acc(h, head), cfg.final_softcap)
+
+
+def _logits_tp(params, cfg, h):
+    """The head on this rank's vocabulary columns (``embed``'s rows under
+    ``tie_embeddings``): column-parallel, soft-capped, constrained to the
+    reference's ("batch", "seq", "vocab"); gathered whole by the entry
+    points."""
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    vocab_dim = 0 if cfg.tie_embeddings else 1
+    local = tp.model_local(table)
+    head = local.T if cfg.tie_embeddings else local
+    placement = tp.model_placement(table)
+    if placement.is_shard() and placement.dim == vocab_dim:
+        logits = tp.column(h, lambda x: dot_f32acc(x, head), head.shape)
+    else:
+        logits = tp.replicated(h, lambda x: dot_f32acc(x, head), head.shape)
+    logits = softcap(logits, cfg.final_softcap)
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _attn_block_forward(lp, h, cfg, positions, window: int):
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     out, kv = attn.attention_forward(lp["attn"], x, cfg, positions,
                                      cfg.quant, window)
-    return _ffn(lp, h + out, cfg), kv
+    h = constrain(_ffn(lp, h + out, cfg), ("batch", "seq_sp", "embed"))
+    return h, kv
 
 
 def _attn_block_decode(lp, h, cfg, cache, index, window: int):
@@ -287,14 +352,49 @@ def _attn_block_decode(lp, h, cfg, cache, index, window: int):
     return _ffn(lp, h, cfg)
 
 
+# the aten products each REPRO_REMAT_POLICY keeps: ``dots`` every matrix
+# product (JAX's checkpoint_dots), ``dots_no_batch`` those without a batch
+# axis (dots_with_no_batch_dims_saveable): the weight projections and the
+# head, not attention's or the experts' batched einsums. The products are
+# reached through numerics.dot_f32acc / einsum_f32acc: ``mm`` / ``bmm``
+# (float64 on the CPU, out_dtype f32 or IEEE f32 on the card), inside
+# _CardProduct's forward too.
+_REMAT_KEEP = {
+    "dots": ("mm", "addmm", "bmm", "baddbmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def _remat_context(policy: str):
+    """``context_fn`` of ``torch.utils.checkpoint.checkpoint`` that keeps
+    the outputs of ``_REMAT_KEEP[policy]``'s products and recomputes the
+    rest in the backward."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    keep = {getattr(torch.ops.aten, n) for n in _REMAT_KEEP[policy]}
+
+    def choose(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op.overloadpacket in keep \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return create_selective_checkpoint_contexts(choose)
+
+
 def _remat(cfg, fn, *args):
     """``fn(*args)``, its activations recomputed in the backward under
-    ``cfg.remat`` (the reference's default policy: only the inputs are
-    kept)."""
-    if cfg.remat:
+    ``cfg.remat``, with the reference's ``REPRO_REMAT_POLICY``: ``none``
+    keeps only the inputs; ``dots`` and ``dots_no_batch`` also keep the
+    outputs of the products ``_REMAT_KEEP`` names (a kept output has the
+    bits the recomputation would give, so the gradients are those of
+    ``none``)."""
+    if not cfg.remat:
+        return fn(*args)
+    policy = envflags.get_str("REPRO_REMAT_POLICY")
+    if policy == "none":
         return torch.utils.checkpoint.checkpoint(fn, *args,
                                                  use_reentrant=False)
-    return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: _remat_context(policy))
 
 
 def _block(forward_fn, p, norm, h, cfg):
@@ -359,8 +459,8 @@ def forward(params: dict, cfg, batch: dict, collect_cache: bool = False):
         h, kv = _remat(cfg, _attn_block_forward, lp, h, cfg, positions,
                        window)
         if collect_cache:
-            kvs.append(kv)
-    logits = _logits(params, cfg, h)
+            kvs.append(tuple(tp.full(a) for a in kv))
+    logits = tp.full(_logits(params, cfg, h))
     return (logits, kvs) if collect_cache else logits
 
 
@@ -397,7 +497,7 @@ def decode_step(params: dict, cfg, batch: dict, caches: dict,
         for lp, cache, window in zip(params["layers"], caches["layers"],
                                      layer_windows(cfg)):
             h = _attn_block_decode(lp, h, cfg, cache, index, window)
-    return _logits(params, cfg, h)
+    return tp.full(_logits(params, cfg, h))
 
 
 def _block_decode(decode_fn, p, norm, h, cfg, cache):
@@ -459,7 +559,7 @@ def prefill_chunk(params: dict, cfg, batch: dict, caches: dict,
         h = h + attn.attention_prefill(lp["attn"], x, cfg, cache, index,
                                        lengths, cfg.quant, window)
         h = _ffn(lp, h, cfg)
-    return _logits(params, cfg, h)
+    return tp.full(_logits(params, cfg, h))
 
 
 # ---------------------------------------------------------------------------

@@ -31,14 +31,27 @@ Dispatch and combine are the reference's one-hot contractions, so a token's
 Under autograd the top-k choice, the queue positions and the capacity carry
 no gradient (indices and one-hots); the renormalised router probabilities
 in the combine do, down to the router's weight.
+
+Tensor parallelism (``repro_torch.distributed.tp``): the routing, dispatch
+and combine run on every rank's whole (replicated) tokens, with the
+reference's four ``constrain`` sites; each expert product runs on this
+rank's shard of its weight by the weight's placement along "model": a
+dense (E, K, N) stack's N (column) or K (row: reduced at once), a packed
+(K, E, N) stack's N (column) or, for ``down`` under the reference's specs,
+its E (expert-parallel: the rank's experts, whose outputs are gathered for
+the combine).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.codecs import get_codec
+from repro_torch.distributed import tp
+from repro_torch.distributed.sharding import constrain
+from .layers import gated
 from .numerics import einsum_f32acc
 from .quant import PackedTensor, decode_serving_weight, fake_quant_act, \
-    fake_quant_ste, fake_quant_weight, init_linear
+    fake_quant_ste, fake_quant_weight, init_linear, is_placed, placed_product
 
 __all__ = ["init_moe", "moe_apply", "route"]
 
@@ -73,6 +86,8 @@ def _expert_matmul(xe: torch.Tensor, w, quant: str,
     Under ``serve`` a PackedTensor (K, E, N) is decoded and xe fake-quantized
     with its codec; a dense (E, K, N) weight multiplies as it is, after
     ``qat``'s fake-quant in ``fmt``."""
+    if is_placed(w):
+        return _expert_matmul_tp(xe, w, quant, fmt)
     if quant == "serve" and isinstance(w, PackedTensor):
         wd = decode_serving_weight(w)                      # (K, E, N)
         xq = fake_quant_act(xe.to(torch.float32), w.codec).to(wd.dtype)
@@ -83,6 +98,29 @@ def _expert_matmul(xe: torch.Tensor, w, quant: str,
     elif quant not in ("none", "serve"):
         raise ValueError(f"unknown quant mode {quant!r}")
     return einsum_f32acc("geck,ekf->gecf", xe, w).to(xe.dtype)
+
+
+def _expert_matmul_tp(xe, w, quant: str, fmt: str):
+    """``_expert_matmul`` of a placed expert stack (module docstring),
+    through ``quant.placed_product``."""
+    packed = quant == "serve" and isinstance(w, PackedTensor)
+    if packed:
+        ref = decode_serving_weight(w)                     # (K, E, N)
+        dims, eq, codec = (2, 0, 1), "geck,kef->gecf", get_codec(w.codec)
+
+        def quantize_x(t):
+            return fake_quant_act(t.to(torch.float32), codec.name).to(
+                ref.dtype)
+    else:
+        ref = w                                            # (E, K, N)
+        dims, eq, codec = (2, 1, 0), "geck,ekf->gecf", get_codec(fmt)
+
+        def quantize_x(t):
+            return fake_quant_ste(t, lambda u: fake_quant_act(u, fmt))
+    return placed_product(
+        xe, tp.model_local(ref), tp.model_placement(ref), dims, quant,
+        codec, packed, lambda xl, wl: einsum_f32acc(eq, xl, wl), quantize_x,
+        lambda t: _fake_quant_experts(t, fmt))
 
 
 def route(router: torch.Tensor, xt: torch.Tensor, topk: int, cap: int):
@@ -113,33 +151,52 @@ def route(router: torch.Tensor, xt: torch.Tensor, topk: int, cap: int):
 
 def moe_apply(p: dict, x: torch.Tensor, cfg,
               quant: str = "none") -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d)."""
+    """x (B, S, d) -> (B, S, d), with the reference's four ``constrain``
+    sites (no-ops unplaced). A placed x (a replicated DTensor) runs the
+    routing, the gate and the combine on every rank's local tensors and
+    each expert product on the rank's shard (module docstring)."""
+    placed = tp.is_dtensor(x)
+    run = tp.local_apply if placed else (lambda fn, *args: fn(*args))
+    b, s, d = x.shape
+    xe, combine = run(lambda xl, r: _dispatch(r, xl, cfg), x, p["router"])
+    xe = constrain(xe, ("batch", "expert", None, "embed"))
+    fmt = cfg.quant_format
+    h_g = _expert_matmul(xe, p["gate"], quant, fmt)
+    h_u = _expert_matmul(xe, p["up"], quant, fmt)
+    h = run(gated, h_g, h_u)
+    h = constrain(h, ("batch", "expert", None, "expert_mlp"))
+    ye = _expert_matmul(h, p["down"], quant, fmt)           # (ng, E, C, d)
+    if placed:              # an expert-parallel output: every expert's
+        ye = tp.to_placement(ye, tp.replicate())
+    y = run(lambda c, o: einsum_f32acc("ngec,necd->ngd", c, o).to(x.dtype),
+            combine, ye)
+    y = constrain(y, ("batch", None, "embed"))
+    return run(lambda t: t.reshape(b, s, d), y)
+
+
+def _dispatch(router, x, cfg):
+    """Routing of x (B, S, d) in groups of ``moe_group_size`` tokens: (xe
+    (ng, E, C, d) the tokens in their experts' slots, combine (ng, g, E, C)
+    in x's dtype). Dispatch and combine are accumulated slot by slot, as
+    the reference does."""
     b, s, d = x.shape
     e, topk = cfg.n_experts, cfg.experts_per_token
     g = min(cfg.moe_group_size, b * s)
     ng = (b * s) // g
     cap = _capacity(g, topk, e, cfg.moe_capacity_factor)
     xt = x.reshape(ng, g, d)
-    _, _, top_p, pos, keep = route(p["router"], xt, topk, cap)
+    _, _, top_p, pos, keep = route(router, xt, topk, cap)
     pos_i = pos.clamp(max=cap - 1).to(torch.int64)
-
-    # dispatch / combine accumulated slot by slot, as the reference does
     dispatch = torch.zeros((ng, g, e, cap), dtype=torch.bfloat16,
                            device=x.device)
     combine = torch.zeros((ng, g, e, cap), dtype=torch.float32,
                           device=x.device)
     for k in range(topk):
         oh = torch.nn.functional.one_hot(pos_i[:, :, k], cap).to(
-            torch.float32) * keep[:, :, k, :, None]         # (ng, g, E, C)
+            torch.float32) * keep[:, :, k, :, None]
         dispatch = dispatch + oh.to(torch.bfloat16)
         combine = combine + oh * top_p[:, :, k, None, None]
-
+    dispatch = constrain(dispatch, ("batch", None, "expert", None))
     xe = einsum_f32acc("ngec,ngd->necd", dispatch,
                        xt.to(torch.bfloat16)).to(x.dtype)
-    fmt = cfg.quant_format
-    h_g = _expert_matmul(xe, p["gate"], quant, fmt)
-    h_u = _expert_matmul(xe, p["up"], quant, fmt)
-    h = torch.nn.functional.silu(h_g.to(torch.float32)).to(x.dtype) * h_u
-    ye = _expert_matmul(h, p["down"], quant, fmt)           # (ng, E, C, d)
-    y = einsum_f32acc("ngec,necd->ngd", combine.to(x.dtype), ye).to(x.dtype)
-    return y.reshape(b, s, d)
+    return xe, combine.to(x.dtype)

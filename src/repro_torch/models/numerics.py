@@ -31,9 +31,18 @@ import contextlib
 
 import torch
 
+from repro_torch.core import envflags
 from repro_torch.kernels.ref import dot_f64acc
 
-__all__ = ["dot_f32acc", "einsum_f32acc"]
+__all__ = ["bf16_tp_reduce", "dot_f32acc", "einsum_f32acc"]
+
+
+def bf16_tp_reduce() -> bool:
+    """``REPRO_BF16_TP_REDUCE=1``: a row-parallel partial sum is rounded to
+    bf16 before its tensor-parallel all-reduce, which then moves half the
+    bytes (``repro_torch.distributed.tp.row``); unset, it stays f32. The
+    reference emits bf16 dot outputs for GSPMD's partial sums instead."""
+    return envflags.get_bool("REPRO_BF16_TP_REDUCE")
 
 
 @contextlib.contextmanager

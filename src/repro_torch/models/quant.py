@@ -19,6 +19,20 @@ Every format decision goes through the codec registry
 (``repro_torch.core.codecs``):
 ``fake_quant_weight`` / ``fake_quant_act`` look a codec up by name.
 
+Tensor parallelism (ROADMAP A13): under ``use_sharding`` with a
+``DeviceMesh``, a placed weight (a DTensor, or a PackedTensor of DTensor
+streams) runs its product on this rank's shard through
+``repro_torch.distributed.tp``: the kernel (or its plain version) on the
+local packed streams, which are cut at 32-row group boundaries and so are
+the reference's stream rows; along "fsdp" the u8 streams are gathered
+before the product, since the kernel reads packed bytes. The activations'
+online quantization works in groups of 32 along K, so a K-shard of x
+quantizes to the same bits as its slice of the whole x; a codec whose
+activation scale is per tensor (``act_batch_invariant`` False) quantizes
+the gathered x. ``decode_serving_weight`` of placed streams gathers the
+decoded weight along "fsdp", or under ``REPRO_GATHER_PACKED=1`` the u8
+streams before decoding.
+
 Telemetry (``REPRO_OBS``) at the serve GEMM: the ``health`` pillar probes
 the activations about to be quantized online, on their device; the
 ``metrics`` pillar counts the GEMM call sites by backend and the ``trace``
@@ -38,7 +52,9 @@ import sys
 import torch
 
 from repro_torch import obs
+from repro_torch.core import envflags
 from repro_torch.core.codecs import PackedTensor, get_codec, packed_codecs
+from repro_torch.distributed import tp
 from repro_torch.kernels.ops import packed_matmul
 from .numerics import dot_f32acc
 
@@ -121,17 +137,59 @@ def pack_serving_weight(w: torch.Tensor, fmt: str = "m2xfp") -> PackedTensor:
     return PackedTensor(streams, (k, *tail), fmt)
 
 
+def _decode_local(codec, streams: dict, tail: tuple, shape: tuple,
+                  dtype) -> torch.Tensor:
+    k, n = shape[0], math.prod(shape[1:])
+    flat = {name: s.reshape(s.shape[0], n) if name in tail else s
+            for name, s in streams.items()}
+    return codec.decode(flat, k, n).reshape(shape).to(dtype)
+
+
+def _local_shape(p: PackedTensor, streams: dict, tail: tuple) -> tuple:
+    """The weight shape that ``streams`` (a shard of ``p``'s, cut at group
+    boundaries along the rows) decode to."""
+    name = tail[0]
+    rows = p.streams[name].shape[0]
+    local = streams[name]
+    return (p.shape[0] * local.shape[0] // rows, *local.shape[1:])
+
+
+def is_placed(w) -> bool:
+    """Whether ``w`` is a placed weight: a DTensor, or a PackedTensor with
+    DTensor streams."""
+    if isinstance(w, PackedTensor):
+        return any(tp.is_dtensor(s) for s in w.streams.values())
+    return tp.is_dtensor(w)
+
+
 def decode_serving_weight(p: PackedTensor, dtype=None) -> torch.Tensor:
     """Packed streams -> dense (K, N...) weight in the codec's exact dtype
     (bf16 for the E8M0-scaled codecs, f32 for nvfp4) unless ``dtype``
-    overrides it."""
+    overrides it.
+
+    Placed streams (DTensors) give a DTensor on their mesh, replicated
+    along every dim but "model" and sharded along "model" as the streams
+    are: by default each rank decodes its own streams and the decoded
+    weight is all-gathered along "fsdp", as the reference does; under
+    ``REPRO_GATHER_PACKED=1`` the u8 streams are gathered along "fsdp"
+    first and then decoded (the same bits: the decode is per group)."""
     codec = get_codec(p.codec)
-    k, n = p.shape[0], math.prod(p.shape[1:])
     tail = _tail_streams(p)
-    streams = {name: s.reshape(s.shape[0], n) if name in tail else s
-               for name, s in p.streams.items()}
-    return codec.decode(streams, k, n).reshape(p.shape).to(
-        dtype or codec.decode_dtype)
+    dtype = dtype or codec.decode_dtype
+    if not is_placed(p):
+        return _decode_local(codec, p.streams, tail, p.shape, dtype)
+    from torch.distributed.tensor import DTensor
+    streams = p.streams
+    if envflags.get_bool("REPRO_GATHER_PACKED"):
+        streams = {name: tp.gather_weight(s) if tp.is_dtensor(s) else s
+                   for name, s in streams.items()}
+    ref = streams[tail[0]]
+    local = {name: s.to_local() if tp.is_dtensor(s) else s
+             for name, s in streams.items()}
+    w = _decode_local(codec, local, tail, _local_shape(p, local, tail),
+                      dtype)
+    return tp.gather_weight(DTensor.from_local(
+        w, ref.device_mesh, ref.placements, run_check=False))
 
 
 @contextlib.contextmanager
@@ -153,7 +211,9 @@ def _first_at_site(codec: str, k: int, n: int) -> bool:
     seen = _SITES.get()
     if seen is None:
         return True
-    caller = sys._getframe(3)   # -> _serve_matmul -> quantized_matmul -> it
+    # -> _serve_telemetry -> _serve_matmul (or _tp_matmul) ->
+    # quantized_matmul -> the site
+    caller = sys._getframe(4)
     key = (caller.f_code.co_filename, caller.f_lineno, codec, k, n)
     if key in seen:
         return False
@@ -174,13 +234,22 @@ def _serve_matmul(x: torch.Tensor, w: PackedTensor) -> torch.Tensor:
     codec without a kernel, which decodes -- the reference's "pallas" and
     "xla"), codec, k and n."""
     codec = get_codec(w.codec)
-    on = obs.pillars()
-    if "health" in on:
-        obs.quant_health.probe_act(x, site="serve_gemm", codec=codec.name)
     k = w.shape[0]
     n = math.prod(w.shape[1:])
-    xq = codec.fake_quant_act(x.to(torch.float32)).to(torch.bfloat16)
-    span = _NO_SPAN
+    span = _serve_telemetry(x, codec, k, n)
+    xq = quantize_act(x, codec)
+    with span:
+        out = _packed_product(xq, w)
+    return out.to(x.dtype)
+
+
+def _serve_telemetry(x: torch.Tensor, codec, k: int, n: int):
+    """The serve GEMM's probe, counter and span (module docstring): the
+    ``health`` probe of ``x`` now, and the span to run the product in."""
+    on = obs.pillars()
+    if "health" in on:
+        obs.quant_health.probe_act(tp.full(x), site="serve_gemm",
+                                   codec=codec.name)
     if ("metrics" in on or "trace" in on) and _first_at_site(
             codec.name, k, n):
         backend = "cuda" if codec.kernel is not None and x.is_cuda \
@@ -190,14 +259,29 @@ def _serve_matmul(x: torch.Tensor, w: PackedTensor) -> torch.Tensor:
                 "repro_serve_gemm_traces_total",
                 "serve GEMM call sites traced, by dispatched backend").inc(
                 backend=backend, codec=codec.name, k=k, n=n)
-        span = obs.span("trace.serve_matmul", cat="trace", backend=backend,
+        return obs.span("trace.serve_matmul", cat="trace", backend=backend,
                         codec=codec.name, k=k, n=n)
-    with span:
-        if codec.kernel is None:
-            wd = decode_serving_weight(w)
-            return dot_f32acc(xq.to(wd.dtype), wd).to(x.dtype)
-        out = packed_matmul(xq.reshape(-1, k), w.streams, w.codec)
-    return out.reshape(*x.shape[:-1], n).to(x.dtype)
+    return _NO_SPAN
+
+
+def quantize_act(x: torch.Tensor, codec) -> torch.Tensor:
+    """The serve path's online activation quantization: ``codec``'s
+    fake-quant in f32, rounded to bf16."""
+    return codec.fake_quant_act(x.to(torch.float32)).to(torch.bfloat16)
+
+
+def _packed_product(xq: torch.Tensor, w: PackedTensor) -> torch.Tensor:
+    """xq (..., K) bf16 @ packed w (K, N...) -> f32 (..., N): the codec's
+    packed GEMM, or for a codec without one its decode and ``dot_f32acc``
+    of xq upcast to the decoded dtype. ``w`` holds plain tensors (one
+    rank's shard under tensor parallelism)."""
+    codec = get_codec(w.codec)
+    k = xq.shape[-1]
+    if codec.kernel is None:
+        wd = decode_serving_weight(w)
+        return dot_f32acc(xq.to(wd.dtype), wd.reshape(k, -1))
+    out = packed_matmul(xq.reshape(-1, k), w.streams, w.codec)
+    return out.reshape(*xq.shape[:-1], out.shape[-1])
 
 
 def fake_quant_ste(x: torch.Tensor, quantize) -> torch.Tensor:
@@ -215,6 +299,8 @@ def quantized_matmul(x: torch.Tensor, w, quant: str,
     ``serve`` (a dense weight under ``serve`` -- one too narrow to pack --
     runs the dense GEMM, as in the reference). ``fmt`` is the codec of
     ``qat``'s fake-quant; a packed weight carries its own."""
+    if is_placed(w):
+        return _tp_matmul(x, w, quant, fmt)
     if quant == "serve" and isinstance(w, PackedTensor):
         return _serve_matmul(x, w)
     if quant == "qat":
@@ -223,3 +309,82 @@ def quantized_matmul(x: torch.Tensor, w, quant: str,
     elif quant not in ("none", "serve"):
         raise ValueError(f"unknown quant mode {quant!r}")
     return dot_f32acc(x, w).to(x.dtype)
+
+
+def _tp_matmul(x, w, quant: str, fmt: str):
+    """``quantized_matmul`` of a placed weight (module docstring): the
+    product on this rank's shard of ``w`` through ``placed_product``. x is
+    a DTensor activation on the "model" submesh (or a plain tensor, the
+    same on every rank)."""
+    if isinstance(w, PackedTensor):
+        tail = _tail_streams(w)
+        ref = w.streams[tail[0]]
+        local = {name: tp.model_local(t) for name, t in w.streams.items()}
+        w_local = PackedTensor(local, _local_shape(w, local, tail), w.codec)
+        codec = get_codec(w.codec)
+    else:
+        ref = w
+        w_local = tp.model_local(w)
+        codec = get_codec(fmt)
+    serve = quant == "serve" and isinstance(w, PackedTensor)
+    k, n = w.shape[0], math.prod(w.shape[1:])
+    with _serve_telemetry(x, codec, k, n) if serve else _NO_SPAN:
+        return placed_product(
+            x, w_local, tp.model_placement(ref), (ref.dim() - 1, 0, None),
+            quant, codec, serve,
+            _packed_product if serve else dot_f32acc,
+            lambda xl: _quantize_for(xl, codec, serve, fmt),
+            lambda t: fake_quant_weight(t, fmt))
+
+
+def placed_product(x, w_local, placement, dims: tuple, quant: str, codec,
+                   serve: bool, matmul, quantize_x, fake_quant_w):
+    """The tensor-parallel product of x and ``w_local``, this rank's shard
+    of a placed weight whose placement along "model" is ``placement``:
+    the one dispatch of the dense projections (``_tp_matmul``) and the
+    expert stacks (``moe._expert_matmul``). ``dims`` are the weight's
+    (N, K, E) dims for ``tp.kind_of``; ``serve`` says that x is quantized
+    online with ``codec`` (a packed weight), ``qat`` that it and the shard
+    are fake-quantized (``quantize_x``, ``fake_quant_w``); a row product
+    of a codec whose activation scale is per tensor quantizes the gathered
+    x. ``matmul(x_local, w_local)`` gives the local f32 product, cast to
+    x's dtype (a row product's after its reduce)."""
+    if quant not in ("none", "serve", "qat"):
+        raise ValueError(f"unknown quant mode {quant!r}")
+    kind = tp.kind_of(placement, *dims)
+    if quant == "qat":
+        if not codec.act_batch_invariant and kind != "replicated":
+            # its weight scale is per tensor too: a shard's would differ
+            raise NotImplementedError(
+                f"qat with codec {codec.name!r} (a per-tensor scale) on a "
+                f"weight sharded over 'model' is not tensor-parallel")
+        w_local = fake_quant_ste(w_local, fake_quant_w)
+    out_dtype = x.dtype
+    quantized = serve or quant == "qat"
+    if quantized and kind == "row" and not codec.act_batch_invariant:
+        # a per-tensor activation scale needs the whole x: quantize the
+        # gathered x; ``tp.row`` takes this rank's K-shard of it
+        x = tp.wrap(quantize_x(tp.full(x)), tp.replicate())
+        quantized = False
+
+    def product(xl):
+        return matmul(quantize_x(xl) if quantized else xl, w_local)
+
+    def cast(xl):
+        return product(xl).to(out_dtype)
+    if kind == "column":
+        return tp.column(x, cast, w_local.shape)
+    if kind == "row":
+        return tp.row(x, product, w_local.shape, out_dtype,
+                      (None,) * x.dim())
+    if kind == "expert":             # x's E axis: the experts' (ng, E, C, d)
+        return tp.expert(x, cast, w_local.shape, dim=1)
+    return tp.replicated(x, cast, w_local.shape)
+
+
+def _quantize_for(x: torch.Tensor, codec, serve: bool, fmt: str):
+    """x's online quantization: the serve path's (bf16) or ``qat``'s
+    straight-through fake-quant in ``fmt``."""
+    if serve:
+        return quantize_act(x, codec)
+    return fake_quant_ste(x, lambda t: fake_quant_act(t, fmt))

@@ -32,6 +32,21 @@ start-up and the probes of each launch, whose statistics come to the host
 in the launch's one copy. With ``REPRO_OBS`` unset a launch runs exactly
 the kernels it runs without telemetry; with the ``metrics`` and ``trace``
 pillars alone too (they are host-side).
+
+Tensor parallelism (ROADMAP A13): an engine built under ``use_sharding``
+with a ``DeviceMesh`` that has a "model" dim, on placed parameters
+(``place_tree(params, param_shardings(params, mesh))``; unplaced ones
+serve as without a mesh), places its caches
+at ``cache_shardings`` and runs every launch under that mesh, so each
+product runs on the rank's weight shard (``repro_torch.distributed.tp``)
+and the K/V pages stay sequence-sharded. Every rank runs the same engine
+with the same requests and samples the same tokens from the whole logits.
+Slot resets and scrubs write each rank's own part of the pages, and the KV
+sentinel's counts are summed over "model", so the guard decides alike on
+every rank. The start-up weight sweep of the ``health`` pillar reads the
+gathered weights (a diagnostic, off the serve path). The batch (slot) dims
+stay whole: a mesh whose "data" dims are larger than 1 is refused. The
+attention families only, as for the train step (ROADMAP A13b).
 """
 from __future__ import annotations
 
@@ -46,6 +61,11 @@ import torch
 from repro_torch import obs
 from repro_torch.core.codecs import PackedTensor, packed_leaves, \
     validate_packed
+from repro_torch.distributed import tp
+from repro_torch.distributed.sharding import (cache_shardings, current_rules,
+                                              gather_tree, local_tree,
+                                              map_with_path, place_tree,
+                                              use_sharding)
 from repro_torch.models.model import RECURRENT, decode_step, init_caches, \
     prefill_chunk
 from repro_torch.models.quant import traced_once
@@ -156,16 +176,32 @@ def _reset_slot(caches: dict, slot: int, scrub: bool = False) -> None:
                         t[slot] = 0
 
 
-def _launches(cfg, n_slots: int, nan_checks: bool, kv_checks: bool):
+def _placed(params) -> bool:
+    """Whether any parameter leaf is a DTensor (placed on a mesh)."""
+    found = []
+    map_with_path(lambda _, t: found.append(tp.is_dtensor(t)), params)
+    return any(found)
+
+
+def _launches(cfg, n_slots: int, nan_checks: bool, kv_checks: bool,
+              group=None):
     """The engine's decode and prefill launches. Each runs the model on the
     caches in place and returns (logits, {site: per-slot sentinel counts on
-    the device}), the counts of the checks that are on."""
+    the device}), the counts of the checks that are on. With ``group`` (the
+    "model" group of placed caches) the KV counts of each rank's part of
+    the pages are summed over it."""
     def sentinels(rows, lengths, caches) -> dict:
         out = {}
         if nan_checks:
             out["logits"] = _guard.probe_logits(rows, lengths)
         if kv_checks:
-            out["kv"] = _guard.probe_kv(caches, n_slots)
+            if group is None:
+                out["kv"] = _guard.probe_kv(caches, n_slots)
+            else:
+                import torch.distributed as dist
+                counts = _guard.probe_kv(local_tree(caches), n_slots)
+                dist.all_reduce(counts, group=group)
+                out["kv"] = counts
         return out
 
     def decode(p, b, c, i):
@@ -263,13 +299,17 @@ class ServeEngine:
                 self.guard.degrade()
 
         self.caches = init_caches(cfg, n_slots, max_len, self.device)
+        self._mesh = None
+        if tp.tp_mesh() is not None and _placed(params):
+            self._place(cfg)
         self._tokens = np.zeros((n_slots, 1), np.int64)   # last sampled
         self._index = np.zeros((n_slots,), np.int64)      # absolute position
 
         # FaultInjector wraps these two attributes
         self._step, self._prefill = _launches(
             cfg, n_slots, bool(gcfg and gcfg.nan_checks),
-            bool(gcfg and gcfg.kv_checks))
+            bool(gcfg and gcfg.kv_checks),
+            tp.tp_mesh().get_group() if self._mesh is not None else None)
         # telemetry state: the probes of the launch in flight, and the
         # serve-GEMM call sites counted per launch kind (the reference
         # counts them once per trace of each jitted launch)
@@ -281,7 +321,38 @@ class ServeEngine:
         # once at startup (off the decode hot path)
         if obs.enabled("health"):
             with obs.span("serve.weight_health", cat="obs"):
-                obs.quant_health.weight_tree_health(params)
+                obs.quant_health.weight_tree_health(
+                    gather_tree(params) if self._mesh is not None
+                    else params)
+
+    def _place(self, cfg) -> None:
+        """Tensor-parallel serving (module docstring): keep the active mesh
+        and rules for the launches and place the caches."""
+        from repro_torch.distributed.sharding import active_mesh
+        from repro_torch.launch.mesh import mesh_axis_sizes
+        mesh = active_mesh()
+        sizes = mesh_axis_sizes(mesh)
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not tensor-parallel (ROADMAP "
+                f"A13b): build its engine outside use_sharding")
+        if any(n > 1 for a, n in sizes.items() if a != "model"):
+            raise NotImplementedError(
+                f"a tensor-parallel engine keeps its slots whole: mesh "
+                f"{sizes} has batch dims larger than 1")
+        self._mesh, self._rules = mesh, current_rules()
+        self.caches = place_tree(self.caches,
+                                 cache_shardings(self.caches, mesh))
+
+    def _sharded(self):
+        """The launches' sharding context (a no-op unplaced)."""
+        if self._mesh is None:
+            return _OFF
+        return use_sharding(self._mesh, self._rules)
+
+    def _local_caches(self) -> dict:
+        """The caches as this rank's tensors (aliases of placed leaves)."""
+        return self.caches if self._mesh is None else local_tree(self.caches)
 
     # -- request lifecycle -------------------------------------------------
 
@@ -318,7 +389,7 @@ class ServeEngine:
     def _admit(self) -> None:
         admitted = self.scheduler.admit(self.stats.steps)
         for req in admitted:
-            _reset_slot(self.caches, req.slot)
+            _reset_slot(self._local_caches(), req.slot)
             self._index[req.slot] = 0
         if admitted and self.guard and self.guard.maybe_verify_admit():
             self._spot_check_weights()
@@ -391,7 +462,8 @@ class ServeEngine:
         for slot, req in self.scheduler.active.items():
             if req.phase == "prefill":
                 self._tokens[slot, 0] = req.prompt[req.consumed]
-        with self._observed("decode_step", slots=self.n_slots):
+        with self._observed("decode_step", slots=self.n_slots), \
+                self._sharded():
             logits, counts = self._step(
                 self.params, {"tokens": self._to_device(self._tokens)},
                 self.caches, self._to_device(self._index))
@@ -412,7 +484,7 @@ class ServeEngine:
             else:
                 toks[slot, 0] = self._tokens[slot, 0]
         with self._observed("prefill_chunk", slots=self.n_slots,
-                            tokens=int(lens.sum())):
+                            tokens=int(lens.sum())), self._sharded():
             logits, counts = self._prefill(
                 self.params, {"tokens": self._to_device(toks)}, self.caches,
                 self._to_device(self._index), self._to_device(lens))
@@ -493,7 +565,7 @@ class ServeEngine:
                 poisoned.setdefault(int(slot), "logits")
         for slot, site in sorted(poisoned.items()):
             occupied = slot in self.scheduler.active
-            _reset_slot(self.caches, slot, scrub=True)
+            _reset_slot(self._local_caches(), slot, scrub=True)
             self._index[slot] = 0
             self._tokens[slot, 0] = 0
             chunks[slot] = 0                       # no routing this step

@@ -20,14 +20,33 @@ Scenarios (each returns a picklable dict):
     rounded reciprocal);
   * ``compressed_step``: one compressed train step on such a mesh;
   * ``sharded_step``: steps of ``make_sharded_train_step`` from a placed
-    state, each rank's local shards, and the plain step with
-    ``num_microbatches`` equal to the batch ranks on the whole batch (its
-    state also cut to the same placements);
+    state, each rank's local shards after each step, and the plain step
+    with ``num_microbatches`` equal to the batch ranks on the whole batch
+    (its states also cut to the same placements);
   * ``placement``: each rank's shard of ``arange`` tensors at given specs;
-  * ``restore``: ``restore_state`` of a checkpoint with ``shardings=``.
+  * ``restore``: ``restore_state`` of a checkpoint with ``shardings=``;
+  * ``tp_train``: per case, the tensor-parallel loss, gradients and logits
+    of this rank's batch slice beside the unsharded ones, one sharded
+    train step beside the plain step, each rank's parameter bytes, and
+    what ``Recorder`` saw (product dispatches, collectives);
+  * ``tp_serve``: per case, an engine on placed parameters beside the
+    unplaced engine (tokens, chunks of 1 against the configured chunk,
+    every cache leaf's placement after each step, the collectives of one
+    decode step), and the first case under ``REPRO_OBS=1`` both ways;
+  * ``tp_levers``: ``decode_serving_weight`` of placed packed weights with
+    and without ``REPRO_GATHER_PACKED``, and products and logits with and
+    without ``REPRO_BF16_TP_REDUCE``, with what each moved.
+
+``Recorder`` logs the collectives (op, dtype, shape, group, and whether a
+weight or an activation moved) and the tensor-parallel product dispatches
+of what runs inside it; ``summarize`` turns one into picklable lists (each
+collective's group named by its mesh dim). The tests and chip_smoke read
+what a step moved from it.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 import pickle
 import subprocess
@@ -37,7 +56,7 @@ import traceback
 
 import torch
 
-__all__ = ["run_ranks"]
+__all__ = ["run_ranks", "Recorder", "summarize", "SCENARIOS"]
 
 
 def run_ranks(scenario: str, world: int, workdir: str, timeout_s: float,
@@ -146,23 +165,27 @@ def _sharded_step(rank, world, shape, axes, cfg, opt, state, batches):
     from repro_torch.train import (make_sharded_train_step, make_train_step,
                                    train_state_shardings)
     mesh = _mesh(shape, axes)
+
+    def cut(st):
+        return local_tree(place_tree(st, train_state_shardings(st, mesh)))
     placed = place_tree(state, train_state_shardings(state, mesh))
     step = make_sharded_train_step(cfg, opt, mesh)
-    metrics = []
+    metrics, steps = [], []
     for b in batches:
         placed, m = step(placed, b)
         metrics.append(m)
+        steps.append(local_tree(placed))
     n_batch = mesh.size(mesh.mesh_dim_names.index("data"))
     plain = make_train_step(cfg, opt, num_microbatches=n_batch)
-    ref, ref_metrics = state, []
+    ref, ref_metrics, ref_steps = state, [], []
     for b in batches:
         ref, m = plain(ref, b)
         ref_metrics.append(m)
-    return {"metrics": metrics, "local": local_tree(placed),
+        ref_steps.append(cut(ref))
+    return {"metrics": metrics, "local": steps[-1], "steps": steps,
             "plain_metrics": ref_metrics, "plain": ref,
-            "plain_local": local_tree(place_tree(
-                ref, train_state_shardings(ref, mesh))),
-            "coordinate": mesh.get_coordinate()}
+            "plain_local": ref_steps[-1], "plain_steps": ref_steps,
+            "start": cut(state), "coordinate": mesh.get_coordinate()}
 
 
 def _placement(rank, world, shape, axes, cases):
@@ -188,10 +211,335 @@ def _restore(rank, world, shape, axes, ckpt_dir, template, specs):
                            for k, v in got.items() if k in shardings}}
 
 
+# ---------------------------------------------------------------------------
+# Recorder
+# ---------------------------------------------------------------------------
+
+_FUNCOL = {"all_reduce": "all_reduce",
+           "all_gather_into_tensor": "all_gather",
+           "reduce_scatter_tensor": "reduce_scatter",
+           "all_to_all_single": "all_to_all",
+           "broadcast": "broadcast"}
+_EAGER = ("all_reduce", "all_gather_into_tensor", "all_gather",
+          "reduce_scatter_tensor", "all_to_all_single", "broadcast")
+
+
+@dataclasses.dataclass
+class Recorder:
+    """Collectives and product dispatches while active (a context
+    manager). ``collectives``: dicts of ``op`` (all_reduce, all_gather,
+    reduce_scatter, all_to_all, broadcast), ``dtype``, ``shape`` (of the
+    tensor handed to the collective), ``group`` (the group's name),
+    ``moving`` ("weight" inside ``tp.gather_weight``, which it wraps, else
+    "activation") and ``nbytes``; ``gemms``: dicts of ``kind``, ``x`` and
+    ``w`` (the local shapes, from ``tp.on_gemm``). DTensor's collectives
+    (functional collectives) are seen through a dispatch mode, the port's
+    own eager ``torch.distributed`` calls through wrappers; all are put
+    back on exit."""
+
+    collectives: list = dataclasses.field(default_factory=list)
+    gemms: list = dataclasses.field(default_factory=list)
+
+    def _log(self, op, t, group):
+        self.collectives.append({
+            "op": op, "dtype": str(t.dtype).replace("torch.", ""),
+            "shape": tuple(t.shape), "group": str(group),
+            "moving": self._moving,
+            "nbytes": t.numel() * t.element_size()})
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from repro_torch.distributed import tp
+        rec = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.__name__.split(".")[0]
+                if func.namespace == "_c10d_functional" and name in _FUNCOL:
+                    group = [a for a in args if isinstance(a, str)]
+                    rec._log(_FUNCOL[name], args[0],
+                             group[-1] if group else "")
+                return func(*args, **(kwargs or {}))
+
+        self._saved = {n: getattr(dist, n) for n in _EAGER}
+
+        def wrapped(n, f):
+            @functools.wraps(f)
+            def call(tensor, *a, **k):
+                group = k.get("group")
+                t = tensor[0] if isinstance(tensor, (list, tuple)) \
+                    else tensor
+                rec._log(_FUNCOL.get(n, n),
+                         t if n != "all_gather_into_tensor" else a[0],
+                         group.group_name if group is not None
+                         else dist.group.WORLD.group_name)
+                return f(tensor, *a, **k)
+            return call
+        for n, f in self._saved.items():
+            setattr(dist, n, wrapped(n, f))
+        self._prev_gemm = tp.on_gemm
+
+        def on_gemm(kind, x, w):
+            rec.gemms.append({"kind": kind, "x": x, "w": w})
+            if rec._prev_gemm is not None:
+                rec._prev_gemm(kind, x, w)
+        tp.on_gemm = on_gemm
+        self._prev_gather = tp.gather_weight
+        self._moving = "activation"
+
+        @functools.wraps(self._prev_gather)
+        def gather_weight(t):
+            prev, rec._moving = rec._moving, "weight"
+            try:
+                return rec._prev_gather(t)
+            finally:
+                rec._moving = prev
+        tp.gather_weight = gather_weight
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        from repro_torch.distributed import tp
+        self._mode.__exit__(*exc)
+        for n, f in self._saved.items():
+            setattr(dist, n, f)
+        tp.on_gemm = self._prev_gemm
+        tp.gather_weight = self._prev_gather
+        return False
+
+
+def summarize(rec, mesh) -> dict:
+    """A ``Recorder``'s product dispatches and collectives, each
+    collective's group named by the mesh dim whose group it is (or
+    "world")."""
+    names = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
+    for a in mesh.mesh_dim_names:     # a dim of size 1 never communicates
+        if mesh.size(mesh.mesh_dim_names.index(a)) > 1:
+            names[mesh.get_group(a).group_name] = a
+    return {"gemms": list(rec.gemms),
+            "collectives": [dict(c, group=names.get(c["group"], "world"))
+                            for c in rec.collectives]}
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.distributed.sharding import local_tree, map_with_path
+    out = []
+    map_with_path(lambda _, t: out.append(t.numel() * t.element_size()),
+                  local_tree(tree))
+    return sum(out)
+
+
+def _tp_train(rank, world, shape, axes, cases):
+    """Per case (name, cfg, opt, state, batch): the tensor-parallel loss,
+    gradients (gathered whole along "model" from their shards) and logits
+    of this rank's batch slice and the unsharded ones; one
+    ``make_sharded_train_step`` beside ``make_train_step`` with
+    ``num_microbatches`` the batch ranks; this rank's parameter bytes and
+    ``shard_nbytes``; both steps' states at this rank's shards; what the
+    recorder saw in the gradients' and the step's runs."""
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.sharding import (local_tree, place_tree,
+                                                  shard_nbytes,
+                                                  use_sharding)
+    from repro_torch.models.model import forward
+    from repro_torch.train import (batch_sharding, cast_for_compute,
+                                   make_sharded_train_step, make_train_step,
+                                   tp_loss_and_grads, train_state_shardings)
+    from repro_torch.train.trainer import _local_batch, _loss_and_grads
+    from repro_torch.tree import tree_map
+    mesh = _mesh(shape, axes)
+    n_batch = mesh.size(mesh.mesh_dim_names.index("data"))
+    out = {"coordinate": mesh.get_coordinate(), "cases": {}}
+    for name, cfg, opt, state, batch in cases:
+        sh = train_state_shardings(state, mesh)
+        placed = place_tree(state, sh)
+        local = _local_batch(batch, batch_sharding(mesh))
+        with Recorder() as rec:
+            loss, grads = tp_loss_and_grads(placed["params"], cfg, local,
+                                            mesh)
+        with use_sharding(mesh):            # whole, for the comparison
+            grads = tree_map(lambda g, p: tp.wrap(
+                g, tp.model_placement(p)).full_tensor(), grads,
+                placed["params"])
+        plain_loss, plain_grads = _loss_and_grads(state["params"], cfg,
+                                                  local)
+        with torch.no_grad():
+            with use_sharding(mesh):
+                logits = forward(cast_for_compute(placed["params"]), cfg,
+                                 local)
+            plain_logits = forward(cast_for_compute(state["params"]), cfg,
+                                   local)
+        with Recorder() as step_rec:
+            new, metrics = make_sharded_train_step(cfg, opt, mesh)(placed,
+                                                                   batch)
+        plain_new, plain_metrics = make_train_step(
+            cfg, opt, num_microbatches=n_batch)(state, batch)
+        out["cases"][name] = {
+            "loss": loss, "grads": grads, "logits": logits,
+            "plain_loss": plain_loss, "plain_grads": plain_grads,
+            "plain_logits": plain_logits, "metrics": metrics,
+            "plain_metrics": plain_metrics,
+            "param_bytes": _nbytes(new["params"]),
+            "shard_nbytes": shard_nbytes(state["params"], sh["params"]),
+            "start": local_tree(placed), "new": local_tree(new),
+            "plain_new": local_tree(place_tree(plain_new, sh)),
+            "grads_run": summarize(rec, mesh),
+            "step_run": summarize(step_rec, mesh)}
+    return out
+
+
+def _placements_kept(caches, shardings) -> bool:
+    """Every cache leaf a DTensor at its ``cache_shardings`` placement."""
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.sharding import map_with_path
+    flat = []
+    map_with_path(lambda p, t: flat.append(t), caches)
+    want = []
+    map_with_path(lambda p, s: want.append(s), shardings)
+    return len(flat) == len(want) and all(
+        tp.is_dtensor(t) and list(t.placements) == s.placements()
+        for t, s in zip(flat, want))
+
+
+def _tp_serve(rank, world, shape, axes, cases):
+    """Per case (name, cfg, params, prompts, n_new, engine kwargs): the
+    unplaced engine's tokens, the placed engine's (stepped one step at a
+    time, every cache leaf's placement checked after each step) with the
+    recorder's product dispatches and collectives, the first K leaf's
+    placements, the placed engine's tokens with chunks of 1, and the
+    collectives of one decode launch."""
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.sharding import (cache_shardings,
+                                                  map_with_path,
+                                                  param_shardings,
+                                                  place_tree, use_sharding)
+    from repro_torch.serve.engine import ServeEngine
+    mesh = _mesh(shape, axes)
+    out = {"coordinate": mesh.get_coordinate(), "cases": {}}
+    for name, cfg, params, prompts, n_new, kw in cases:
+        want = ServeEngine(params, cfg, device="cpu", **kw).generate(
+            prompts, n_new)
+        placed = place_tree(params, param_shardings(params, mesh))
+        with use_sharding(mesh):
+            eng = ServeEngine(placed, cfg, device="cpu", **kw)
+            one = ServeEngine(placed, cfg, device="cpu",
+                              **dict(kw, prefill_chunk=1))
+        shardings = cache_shardings(eng.caches, mesh)
+        reqs = [eng.submit(p, n_new) for p in prompts]
+        kept = []
+        with Recorder() as rec:
+            while eng.scheduler.has_work:
+                eng.step()
+                kept.append(_placements_kept(eng.caches, shardings))
+        tokens_chunk1 = one.generate(prompts, n_new)
+        # one decode launch: every slot decodes one token
+        eng.submit(prompts[0], 2)
+        eng.step()                             # admission: a prefill
+        with Recorder() as dec:
+            eng._launch_decode({})
+        ks = []
+        map_with_path(lambda path, t: ks.append(t) if path[-1] == "k"
+                      else None, eng.caches)
+        out["cases"][name] = {
+            "cache_k": [str(p) for p in ks[0].placements],
+            "want": want, "tokens": [r.output for r in reqs],
+            "tokens_chunk1": tokens_chunk1, "placements_kept": kept,
+            "run": summarize(rec, mesh), "decode": summarize(dec, mesh),
+            "steps": eng.stats.steps}
+    # the first case again under REPRO_OBS=1, unplaced and placed: the
+    # tokens and the metric names and label sets of the two runs
+    name, cfg, params, prompts, n_new, kw = cases[0]
+    _set_flag("REPRO_OBS", "1")
+    try:
+        from repro_torch import obs
+        seen = {}
+        for placed_run in (False, True):
+            obs.reset()
+            if placed_run:
+                with use_sharding(mesh):
+                    eng = ServeEngine(place_tree(
+                        params, param_shardings(params, mesh)), cfg,
+                        device="cpu", **kw)
+            else:
+                eng = ServeEngine(params, cfg, device="cpu", **kw)
+            tokens = eng.generate(prompts, n_new)
+            seen[placed_run] = (tokens, sorted({
+                (r["name"], tuple(sorted(r["labels"].items())))
+                for r in obs.registry().snapshot()}))
+        obs.reset()
+    finally:
+        _set_flag("REPRO_OBS", None)
+    out["obs"] = {"case": name, "unplaced": seen[False], "placed": seen[True]}
+    return out
+
+
+def _set_flag(name: str, value) -> None:
+    """Set (a string) or unset (None) a flag in this rank's environment,
+    where the port reads it through ``core/envflags.py``."""
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def _tp_levers(rank, world, shape, axes, weights, cfg, params, tokens,
+               row):
+    """``decode_serving_weight`` of each placed packed weight of
+    ``weights`` (one-leaf trees: the path gives the weight's specs) with
+    ``REPRO_GATHER_PACKED`` unset and "1" (each rank's local result and
+    the collectives of each); the forward logits of
+    ``params`` on ``tokens`` with ``REPRO_BF16_TP_REDUCE`` unset and "1"
+    (with the collectives); and the row-parallel product of ``row`` =
+    (x f32, w) with the flag unset and "1" (this rank's full result)."""
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.sharding import (NamedSharding,
+                                                  param_shardings,
+                                                  place_tree, use_sharding)
+    from repro_torch.models.model import forward
+    from repro_torch.models.quant import decode_serving_weight, \
+        quantized_matmul
+    mesh = _mesh(shape, axes)
+    out = {"coordinate": mesh.get_coordinate(), "gather": {}, "bf16": {},
+           "row": {}}
+
+    def packed_leaf(tree):
+        while isinstance(tree, dict):
+            tree, = tree.values()
+        return tree
+    for key, w in weights.items():
+        # each weight sits in a one-leaf tree whose path names its specs
+        placed = packed_leaf(place_tree(w, param_shardings(w, mesh)))
+        for value in (None, "1"):
+            _set_flag("REPRO_GATHER_PACKED", value)
+            with Recorder() as rec, use_sharding(mesh):
+                got = decode_serving_weight(placed)
+            out["gather"][(key, value)] = {
+                "local": got.to_local(),
+                "placements": [str(p) for p in got.placements],
+                "run": summarize(rec, mesh)}
+    _set_flag("REPRO_GATHER_PACKED", None)
+    placed = place_tree(params, param_shardings(params, mesh))
+    x, w = row
+    w_placed = NamedSharding(mesh, ("model", None)).place(w)
+    for value in (None, "1"):
+        _set_flag("REPRO_BF16_TP_REDUCE", value)
+        with torch.no_grad(), Recorder() as rec, use_sharding(mesh):
+            logits = forward(placed, cfg, {"tokens": tokens})
+            prod = tp.full(quantized_matmul(x, w_placed, "none"))
+        out["bf16"][value] = {"logits": logits, "run": summarize(rec, mesh)}
+        out["row"][value] = prod
+    _set_flag("REPRO_BF16_TP_REDUCE", None)
+    return out
+
+
 SCENARIOS = {"pipeline": _pipeline, "compressed_psum": _compressed_psum,
              "compressed_step": _compressed_step,
              "sharded_step": _sharded_step, "placement": _placement,
-             "restore": _restore}
+             "restore": _restore, "tp_train": _tp_train,
+             "tp_serve": _tp_serve, "tp_levers": _tp_levers}
 
 
 def _rank_main(scenario: str, rank: int, world: int, workdir: str) -> None:

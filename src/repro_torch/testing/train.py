@@ -46,10 +46,10 @@ import torch
 from repro_torch.convert import flat_leaves, stack_layers
 from repro_torch.models.model import loss_fn
 from repro_torch.train.trainer import _grads_and_loss, cast_for_compute
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["GRAD_TOL", "GRAD_L2", "LOSS_RTOL", "grad_agreement",
-           "step_card_vs_cpu"]
+__all__ = ["GRAD_TOL", "GRAD_L2", "LOSS_RTOL", "adamw_agreement",
+           "grad_agreement", "step_card_vs_cpu"]
 
 GRAD_TOL = 2.0 ** -5
 GRAD_L2 = 2.0 ** -5
@@ -75,6 +75,83 @@ def grad_agreement(got: dict, want: dict) -> dict:
             worst.update(elem_ratio=elem, elem_leaf=k)
         if l2 > worst["l2_ratio"]:
             worst.update(l2_ratio=l2, l2_leaf=k)
+    return worst
+
+
+def adamw_agreement(start: dict, got: list, want: list, lrs: list,
+                    opt) -> dict:
+    """Worst ratios (each below 1 when within) of two AdamW runs' train
+    states to the bounds that their gradients' agreement implies, when
+    each step's gradients agree leaf by leaf within ``GRAD_L2`` of the
+    norm and the grad_norms within ``GRAD_L2`` of each other (the rules
+    the tensor-parallel gradients are held to). ``start``: the common
+    state before the first step; ``got`` / ``want``: the states after each
+    step (the same leaves: a rank's shards, or whole); ``lrs`` each step's
+    learning rate; ``opt`` the ``AdamWConfig``. Computed in float64.
+
+    With c the clipped gradients and s the clip scale, ||c - c'|| <=
+    s ||g - g'|| + |s - s'| ||g'|| <= e ||c'||, e = 2 GRAD_L2 /
+    (1 - GRAD_L2). ``want``'s c' and c'^2 are read back from its moments
+    (m_t = b1 m_{t-1} + (1 - b1) c_t, v_t likewise with c^2). Per leaf:
+
+      m (L2)   ||dm_t|| <= b1 ||dm_{t-1}|| + (1 - b1) e ||c'||
+      v (L2)   ||dv_t|| <= b2 ||dv_{t-1}|| + (1 - b2) ||c^2 - c'^2||, with
+               ||c^2 - c'^2|| <= e ||c'|| (2 max|c'| + e ||c'||)
+      params   |dp_t| <= |dp_{t-1}| + lr_t |u - u'| elementwise, u =
+               m_hat / (sqrt(v_hat) + eps) of each run's own moments
+               (weight decay only shrinks dp)
+
+    each plus its f32 roundings (2^-20 of the magnitudes); the observed
+    difference of step t - 1 carries into step t. ``step`` must be equal:
+    its ratio is 0 or inf."""
+    e = 2 * GRAD_L2 / (1 - GRAD_L2)
+    b1, b2, eps = opt.b1, opt.b2, opt.eps
+    rnd = 2.0 ** -20
+
+    def leaves(state):
+        return [[t.to(torch.float64) for t in tree_leaves(part)]
+                for part in (state["params"], state["opt"]["m"],
+                             state["opt"]["v"])]
+    p0, m0, v0 = leaves(start)
+    worst = {"m": 0.0, "v": 0.0, "params": 0.0, "step": 0.0}
+    step0 = int(start["opt"]["step"])
+    for i in range(len(p0)):
+        dm = dv = 0.0
+        dp = torch.zeros_like(p0[i])
+        wm_prev, wv_prev = m0[i], v0[i]
+        for t, (g_state, w_state, lr) in enumerate(zip(got, want, lrs)):
+            (gp, gm, gv), (wp, wm, wv) = (
+                [part[i] for part in leaves(g_state)],
+                [part[i] for part in leaves(w_state)])
+            c = (wm - b1 * wm_prev) / (1 - b1)
+            c2 = ((wv - b2 * wv_prev) / (1 - b2)).clamp_min(0)
+            cn = float(c.norm())
+            cmax = float(c2.max().sqrt()) if c2.numel() else 0.0
+            bm = b1 * dm + (1 - b1) * e * cn + rnd * (
+                float(wm.norm()) + b1 * float(wm_prev.norm()) + cn)
+            bv = b2 * dv + (1 - b2) * e * cn * (2 * cmax + e * cn) + rnd * (
+                float(wv.norm()) + b2 * float(wv_prev.norm())
+                + (1 - b2) * float(c2.norm()))
+            dm, dv = float((gm - wm).norm()), float((gv - wv).norm())
+            worst["m"] = max(worst["m"], dm / bm if bm > 0 else
+                             (0.0 if dm == 0 else float("inf")))
+            worst["v"] = max(worst["v"], dv / bv if bv > 0 else
+                             (0.0 if dv == 0 else float("inf")))
+            n = step0 + t + 1
+            bc1, bc2 = 1 - b1 ** n, 1 - b2 ** n
+            gu = (gm / bc1) / ((gv / bc2).sqrt() + eps)
+            wu = (wm / bc1) / ((wv / bc2).sqrt() + eps)
+            bp = dp + lr * (gu - wu).abs() + rnd * (
+                lr * (gu.abs() + wu.abs()) + gp.abs() + wp.abs())
+            dp = (gp - wp).abs()
+            ratio = torch.where(bp > 0, dp / bp.clamp_min(1e-300),
+                                torch.where(dp > 0, float("inf"), 0.0))
+            if ratio.numel():
+                worst["params"] = max(worst["params"], float(ratio.max()))
+            wm_prev, wv_prev = wm, wv
+    for g_state, w_state in zip(got, want):
+        if not torch.equal(g_state["opt"]["step"], w_state["opt"]["step"]):
+            worst["step"] = float("inf")
     return worst
 
 

@@ -15,7 +15,7 @@ from .optimizer import (  # noqa: F401
 from .trainer import (  # noqa: F401
     batch_sharding, cast_for_compute, make_sharded_train_step,
     make_train_state, make_train_step, publish_train_metrics,
-    train_state_shardings,
+    tp_loss_and_grads, train_state_shardings,
 )
 
 __all__ = [
@@ -23,6 +23,6 @@ __all__ = [
     "batch_sharding", "cast_for_compute", "clip_by_global_norm",
     "compress_decompress", "compressed_psum", "global_norm",
     "init_error_feedback", "make_sharded_train_step", "make_train_state",
-    "make_train_step", "publish_train_metrics", "train_state_shardings",
-    "warmup_cosine",
+    "make_train_step", "publish_train_metrics", "tp_loss_and_grads",
+    "train_state_shardings", "warmup_cosine",
 ]

@@ -18,7 +18,9 @@ the parameters, step replicated) and ``batch_sharding`` the batch.
 compressed path: each pod rank takes its slice of the batch, the
 gradients are reduced across pods by ``compressed_psum``, the loss is
 averaged over pods, and every pod applies the same AdamW update.
-``make_sharded_train_step`` is the plain path on a mesh.
+``make_sharded_train_step`` is the plain path on a mesh; for the attention
+families it computes on each rank's tensor-parallel shards
+(``repro_torch.distributed.tp``).
 
 ``publish_train_metrics`` streams a step's metrics through the
 telemetry registry (``REPRO_OBS``).
@@ -34,6 +36,7 @@ import torch.distributed as dist
 from repro_torch import obs
 from repro_torch.convert import reference_ndims
 from repro_torch.core.dtypes import div_const
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import (NamedSharding, gather_tree,
                                               local_tree, logical_to_spec,
                                               param_shardings, place_tree,
@@ -48,7 +51,8 @@ from .optimizer import (AdamWConfig, adamw_init, adamw_update, global_norm,
 
 __all__ = ["make_train_state", "make_train_step", "cast_for_compute",
            "train_state_shardings", "batch_sharding",
-           "make_sharded_train_step", "publish_train_metrics"]
+           "make_sharded_train_step", "tp_loss_and_grads",
+           "publish_train_metrics"]
 
 
 def publish_train_metrics(metrics: dict, step: Optional[int] = None) -> None:
@@ -138,13 +142,15 @@ def _local_batch(batch: dict, sharding: NamedSharding) -> dict:
     return {k: sharding.place(v).to_local() for k, v in batch.items()}
 
 
-def _loss_and_grads(params, cfg, batch):
+def _loss_and_grads(params, cfg, batch, compute=None):
     """(loss, gradients of ``loss_fn(cast_for_compute(params))`` with
     respect to every leaf of ``params``; zeros for a leaf the loss does not
-    reach, as JAX gives)."""
+    reach, as JAX gives). ``compute`` maps the leaves to what the model
+    computes on (the tensor-parallel DTensors of a placed state)."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss = loss_fn(cast_for_compute(leaves), cfg, batch)
+        seen = leaves if compute is None else compute(leaves)
+        loss = loss_fn(cast_for_compute(seen), cfg, batch)
         flat = tree_leaves(leaves)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
     it = iter(zip(flat, grads))
@@ -155,18 +161,19 @@ def _loss_and_grads(params, cfg, batch):
     return loss.detach(), tree_map(take, leaves)
 
 
-def _grads_and_loss(params, cfg, batch: dict, num_microbatches: int):
+def _grads_and_loss(params, cfg, batch: dict, num_microbatches: int,
+                    compute=None):
     """Loss and gradients, accumulated over ``num_microbatches`` slices of
     the batch (axis 0) in the reference's order: loss and gradients summed
     microbatch by microbatch from zeros, then times ``1 / n``."""
     if num_microbatches <= 1:
-        return _loss_and_grads(params, cfg, batch)
+        return _loss_and_grads(params, cfg, batch, compute)
     n = num_microbatches
     loss, grads = 0.0, tree_map(torch.zeros_like, params)
     for i in range(n):
         mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
               for k, v in batch.items()}
-        mb_loss, g = _loss_and_grads(params, cfg, mb)
+        mb_loss, g = _loss_and_grads(params, cfg, mb, compute)
         loss = loss + mb_loss
         grads = tree_map(torch.add, grads, g)
     inv = 1.0 / n
@@ -229,24 +236,88 @@ def make_train_step(cfg, opt_cfg: AdamWConfig,
     return compressed_step
 
 
+def tp_loss_and_grads(params, cfg, batch: dict, mesh, rules=None,
+                      num_microbatches: int = 1):
+    """Loss and gradients of ``batch`` (this rank's rows) on the
+    tensor-parallel model (``repro_torch.distributed.tp``) from placed
+    master ``params``: each leaf is gathered along the mesh dims other
+    than "model" (the fsdp all-gather) and kept at its "model" shard, the
+    forward and backward run on the shards, and each gradient comes out
+    as a plain tensor at its leaf's "model" shard (whole along the other
+    dims; a replicated leaf's summed over "model")."""
+    with use_sharding(mesh, rules):
+        mm = tp.tp_mesh()
+
+        def wrap(t, p):
+            return tp.wrap(t, tp.model_placement(p), mm)
+        return _grads_and_loss(
+            tree_map(tp.model_local, params), cfg, batch, num_microbatches,
+            lambda leaves: tree_map(wrap, leaves, params))
+
+
+def _tp_global_norm(grads, params, mesh) -> torch.Tensor:
+    """``global_norm`` of the whole gradients from each rank's "model"
+    shards (``tp_loss_and_grads``): each leaf's f32 squares summed in
+    float64 on the shard, the sums of the leaves sharded over "model"
+    all-reduced over it at once (a replicated leaf counted once), then
+    summed over the leaves and rounded to f32 before the root, as
+    ``global_norm`` does."""
+    sums = [g.to(torch.float32).square().sum(dtype=torch.float64)
+            for g in tree_leaves(grads)]
+    sharded = torch.tensor([tp.model_placement(p).is_shard()
+                            for p in tree_leaves(params)],
+                           device=sums[0].device)
+    sums = torch.stack(sums)
+    part = torch.where(sharded, sums, torch.zeros_like(sums))
+    dist.all_reduce(part, group=mesh.get_group("model"))
+    sums = torch.where(sharded, part, sums)
+    return sums.sum().to(torch.float32).sqrt()
+
+
+def _leaf_shard(g, p):
+    """This rank's block of a gradient held at leaf ``p``'s "model" shard
+    (whole along the other mesh dims): cut along those dims to ``p``'s
+    placements, which moves nothing."""
+    from torch.distributed.tensor import DTensor
+    mesh = p.device_mesh
+    held = [pl if n == "model" else tp.replicate()
+            for n, pl in zip(mesh.mesh_dim_names, p.placements)]
+    t = DTensor.from_local(g, mesh, held, run_check=False)
+    return t.redistribute(mesh, p.placements).to_local()
+
+
 def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh, rules=None,
                             num_microbatches: int = 1):
     """The plain step on a ``DeviceMesh``, ZeRO-3 in the reference's sense
     (its FSDP rules): master parameters, m and v are DTensor shards at
-    ``train_state_shardings`` (``place_tree``), gathered for compute (the
-    model's compute is not tensor-parallel). Every rank is called with the
-    same full batch and computes the loss on its ``batch_sharding`` slice;
+    ``train_state_shardings`` (``place_tree``).
+
+    Compute: for the attention families (dense, moe, audio, vlm) the model
+    is tensor-parallel over "model" (``repro_torch.distributed.tp``): each
+    leaf is gathered along the other mesh dims (fsdp) once per step and
+    kept at its "model" shard, every product runs on the rank's shard, and
+    each leaf's gradient comes out at that shard (a replicated leaf's
+    summed over "model" where its ranks saw different heads). The ``ssm``
+    and ``hybrid`` families are not tensor-parallel here (ROADMAP A13b):
+    their leaves are gathered whole for compute.
+
+    Every rank is called with the same full batch and computes the loss on
+    its ``batch_sharding`` slice;
     the loss and gradients are averaged over the batch dims (summed by
     ``all_reduce`` from zeros, then times 1 / n, the plain microbatch
-    path's arithmetic), the gradient norm is taken on the whole averaged
-    gradients, and AdamW updates each rank's shards. With n batch ranks it
-    equals ``make_train_step(num_microbatches=n)`` on the whole batch (bit
-    for bit at n = 2, where a sum of two does not depend on its order); on
-    a 1 x 1 mesh, ``make_train_step`` itself.
+    path's arithmetic), the gradient norm is taken over the averaged
+    gradients, and AdamW updates each rank's shards. With n batch ranks
+    and no product split over "model" it equals
+    ``make_train_step(num_microbatches=n)`` on the whole batch (bit for
+    bit at n = 2, where a sum of two does not depend on its order); on a
+    1 x 1 mesh, ``make_train_step`` itself.
 
-    The gradients are all-reduced whole and then cut to each shard, not
-    reduce-scattered: clipping needs the global norm, and taking it on the
-    whole tensors keeps the plain step's bits."""
+    The gradients stay at their "model" shards: they are all-reduced over
+    the batch dims there (not reduce-scattered: clipping needs the global
+    norm first), the norm sums each leaf's squares on its shards with one
+    all-reduce over "model" (``_tp_global_norm``: float64 sums, so the
+    plain step's arithmetic up to their order), and each is then cut to
+    the rank's block along the other dims."""
     schedule = warmup_cosine(opt_cfg)
     bsh = batch_sharding(mesh, rules)
     sizes = mesh_axis_sizes(mesh)
@@ -261,17 +332,29 @@ def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh, rules=None,
             dist.all_reduce(t, group=g)
         return (torch.zeros_like(t) + t) * (1.0 / n_batch)
 
+    tensor_parallel = cfg.family not in ("ssm", "hybrid") \
+        and "model" in sizes
+
     def step(state, batch):
         from torch.distributed.tensor import DTensor
         params = state["params"]
-        loss, grads = _grads_and_loss(gather_tree(params), cfg,
-                                      _local_batch(batch, bsh),
-                                      num_microbatches)
+        if tensor_parallel:
+            loss, grads = tp_loss_and_grads(params, cfg,
+                                            _local_batch(batch, bsh), mesh,
+                                            rules, num_microbatches)
+        else:
+            loss, grads = _grads_and_loss(gather_tree(params), cfg,
+                                          _local_batch(batch, bsh),
+                                          num_microbatches)
         if n_batch > 1:
             loss, grads = batch_mean(loss), tree_map(batch_mean, grads)
-        gnorm = global_norm(grads)
-        shardings = train_state_shardings(state, mesh, rules)["params"]
-        grad_shards = local_tree(place_tree(grads, shardings))
+        if tensor_parallel:
+            gnorm = _tp_global_norm(grads, params, mesh)
+            grad_shards = tree_map(_leaf_shard, grads, params)
+        else:
+            gnorm = global_norm(grads)
+            shardings = train_state_shardings(state, mesh, rules)["params"]
+            grad_shards = local_tree(place_tree(grads, shardings))
         opt = state["opt"]
         new_p, new_opt, metrics = adamw_update(
             local_tree(params), grad_shards,

@@ -645,20 +645,28 @@ def test_compressed_train_step_matches_reference(reference, tmp_path):
 def test_sharded_step_on_a_2x2_mesh(tmp_path):
     """make_sharded_train_step on a 2 x 2 ("data", "model") gloo mesh:
     ffn.gate holds a quarter of its elements on every rank, the loss falls
-    over two steps, and loss, grad_norm, lr and every parameter and moment
-    shard equal make_train_step(num_microbatches=2) on the whole batch,
-    bit for bit (its state cut to the same placements;
-    test_placement_order_matches_reference holds the cut)."""
+    over two steps, and against make_train_step(num_microbatches=2) on the
+    whole batch (its states cut to the same placements;
+    test_placement_order_matches_reference holds the cut) lr and the step
+    count are equal and, with the model's compute tensor-parallel over
+    "model" (t = 2: its row-parallel partial sums round in another order),
+    the loss and grad_norm are within test_torch_train.py's bounds and
+    after each step every moment and parameter shard is within what
+    gradients agreeing within GRAD_L2 allow (``adamw_agreement``: m and v
+    per leaf from the clipped gradients' bound, each parameter from the
+    update of its own moments). test_sharded_step_on_a_2x1_mesh keeps the
+    bit-for-bit claim where no product is split."""
+    from test_torch_train import LOSS_TOL
     from repro_torch.models.config import ModelConfig
+    from repro_torch.testing.train import GRAD_L2, adamw_agreement
     from repro_torch.train import AdamWConfig, make_train_state
-    from repro_torch.tree import tree_leaves
     cfg = ModelConfig(**TINY)
     state = make_train_state(torch.Generator().manual_seed(0), cfg,
                              device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in tiny_batch().items()}
+    opt = AdamWConfig(**STEP_OPT)
     outs = _ranks("sharded_step", 4, tmp_path, shape=(2, 2),
-                  axes=("data", "model"), cfg=cfg,
-                  opt=AdamWConfig(**STEP_OPT), state=state,
+                  axes=("data", "model"), cfg=cfg, opt=opt, state=state,
                   batches=[batch, batch])
     for r in outs:
         gate = r["local"]["params"]["layers"][0]["ffn"]["gate"]
@@ -666,9 +674,36 @@ def test_sharded_step_on_a_2x2_mesh(tmp_path):
         assert gate.numel() / full.numel() <= 0.25
         assert float(r["metrics"][1]["loss"]) < float(r["metrics"][0]["loss"])
         for m, p in zip(r["metrics"], r["plain_metrics"]):
+            assert torch.equal(m["lr"], p["lr"])
+            assert abs(float(m["loss"]) - float(p["loss"])) <= LOSS_TOL
+            assert abs(float(m["grad_norm"]) - float(p["grad_norm"])) <= \
+                GRAD_L2 * float(p["grad_norm"])
+        worst = adamw_agreement(r["start"], r["steps"], r["plain_steps"],
+                                [float(m["lr"]) for m in r["metrics"]], opt)
+        assert max(worst.values()) <= 1.0, worst
+        assert worst["m"] > 0              # the products were split
+
+
+def test_sharded_step_on_a_2x1_mesh(tmp_path):
+    """make_sharded_train_step on a 2 x 1 ("data", "model") gloo mesh, where
+    the tensor-parallel dispatch splits no product: loss, grad_norm, lr and
+    every parameter and moment shard equal make_train_step(
+    num_microbatches=2) on the whole batch, bit for bit."""
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train import AdamWConfig, make_train_state
+    from repro_torch.tree import tree_leaves
+    cfg = ModelConfig(**TINY)
+    state = make_train_state(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in tiny_batch().items()}
+    outs = _ranks("sharded_step", 2, tmp_path, shape=(2, 1),
+                  axes=("data", "model"), cfg=cfg,
+                  opt=AdamWConfig(**STEP_OPT), state=state,
+                  batches=[batch, batch])
+    for r in outs:
+        for m, p in zip(r["metrics"], r["plain_metrics"]):
             for k in ("loss", "grad_norm", "lr"):
                 assert torch.equal(m[k], p[k]), k
-        # the plain step's state, cut to this rank's shards
         for got, want in zip(tree_leaves(r["local"]),
                              tree_leaves(r["plain_local"])):
             assert torch.equal(got, want)

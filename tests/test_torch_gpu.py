@@ -1693,3 +1693,165 @@ def test_cuda_one_pod_compressed_psum_equals_compress_decompress():
                 assert torch.equal(new_err[k], e), (cc, k)
     finally:
         dist.destroy_process_group()
+
+
+# paper-llama2-7b's projections as t = 2 and t = 4 tensor-parallel ranks
+# hold them (ROADMAP A13): (K, N, kind) of the whole weight; a column shard
+# keeps K and N / t columns, a row shard K / t rows (whole 32-row groups)
+TP_SHAPES = [(4096, 4096, "column"), (4096, 11008, "column"),
+             (4096, 4096, "row"), (11008, 4096, "row")]
+
+
+def _tp_shard(wp: dict, x, kind: str, t: int, r: int):
+    """Rank ``r``'s packed streams (cut from the whole weight's, as
+    ``model_local`` gives them) and its x."""
+    if kind == "column":
+        n = wp["codes"].shape[1]
+        cols = slice(r * n // t, (r + 1) * n // t)
+        return {s: v[:, cols].contiguous() for s, v in wp.items()}, x
+    k = x.shape[1]
+    return ({s: v[r * v.shape[0] // t:(r + 1) * v.shape[0] // t]
+             .contiguous() for s, v in wp.items()},
+            x[:, r * k // t:(r + 1) * k // t].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("fmt", sorted(CODECS))
+def test_cuda_kernel_tp_shards_vs_plain(fmt, t):
+    """#1 / #2 on every rank's shard of paper-llama2-7b's projections at
+    t = 2 and 4, M in {1, 8, 64}: within the kernel's tolerance of the
+    plain version on that shard; a row projection's partials summed in
+    rank order are within the whole launch's tolerance, the shards' and t
+    ulps of the sum of |partials| of the whole launch
+    (tests/test_torch_tp.py derives the last term)."""
+    _need_cuda()
+    pack, gemm, plain, decode, kern = CODECS[fmt]
+    gen = torch.Generator("cuda").manual_seed(2)
+    for k, n, kind in TP_SHAPES:
+        wp = pack(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+        x = torch.randn(64, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for m in (1, 8, 64):
+            xm = x[:m].contiguous()
+            whole = gemm(xm, wp)
+
+            def tol(xs, sp):
+                return xs.shape[1] ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(
+                    xs.abs(), decode(sp).abs())
+            allowed = tol(xm, wp)
+            parts = []
+            for r in range(t):
+                sp, xs = _tp_shard(wp, xm, kind, t, r)
+                got = gemm(xs, sp)
+                bound = tol(xs, sp)
+                assert bool(((got - plain(xs, sp)).abs() <= bound).all()), \
+                    (k, n, kind, m, r)
+                if kind == "column":
+                    cols = slice(r * n // t, (r + 1) * n // t)
+                    assert bool(((got - whole[:, cols]).abs()
+                                 <= bound + allowed[:, cols]).all())
+                parts.append(got)
+                allowed = allowed + (bound if kind == "row" else 0)
+            if kind == "row":
+                summed = parts[0]
+                for p in parts[1:]:
+                    summed = summed + p
+                s = sum(p.abs() for p in parts)
+                ulp = torch.where(s > 0, torch.exp2(torch.floor(
+                    torch.log2(s)) - 23), torch.zeros_like(s))
+                assert bool(((summed - whole).abs()
+                             <= allowed + t * ulp).all()), (k, n, m)
+
+
+@pytest.mark.gpu
+def test_cuda_remat_policies_bit_equal():
+    """Full-width paper-llama2-7b at 2 layers on the card (B = 1, S = 256,
+    remat on): the loss and every gradient under REPRO_REMAT_POLICY dots
+    and dots_no_batch are the bits of none (a kept product output is the
+    one the recompute gives; _CardProduct's forward runs the products)."""
+    _need_cuda()
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.train import make_train_state
+    from repro_torch.train.trainer import _loss_and_grads
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("paper-llama2-7b", n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = make_train_state(gen, cfg, device="cuda")["params"]
+    tok = torch.randint(0, cfg.vocab_size, (1, 257), device="cuda",
+                        generator=gen)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    got = {}
+    try:
+        for policy in ("none", "dots", "dots_no_batch"):
+            os.environ["REPRO_REMAT_POLICY"] = policy
+            loss, grads = _loss_and_grads(params, cfg, batch)
+            got[policy] = (loss, tree_leaves(grads))
+    finally:
+        os.environ.pop("REPRO_REMAT_POLICY", None)
+    loss0, grads0 = got["none"]
+    for policy in ("dots", "dots_no_batch"):
+        loss, grads = got[policy]
+        assert torch.equal(loss, loss0), policy
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads0)), policy
+
+
+_SHARE_CHILD = """
+import json, sys, time
+import torch
+import torch.distributed as dist
+rank, port, elements, repeats = (int(a) for a in sys.argv[1:5])
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=2)
+t = torch.full((elements,), float(rank + 1), device="cuda:0")
+dist.all_reduce(t)
+parts = [torch.empty(4, device="cuda:0") for _ in range(2)]
+dist.all_gather(parts, torch.full((4,), float(rank), device="cuda:0"))
+torch.cuda.synchronize()
+ok = bool((t == 3.0).all()) and all(bool((p == i).all())
+                                    for i, p in enumerate(parts))
+t0 = time.perf_counter()
+for _ in range(repeats):
+    dist.all_reduce(t)
+torch.cuda.synchronize()
+ms = (time.perf_counter() - t0) / repeats * 1e3
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "values_ok": ok,
+                  "all_reduce_bytes": elements * 4, "all_reduce_ms": ms,
+                  "device": torch.cuda.get_device_name(0)}))
+"""
+
+
+@pytest.mark.gpu
+def test_two_processes_share_the_card_over_gloo():
+    """Two processes on cuda:0 in one gloo group over tcp://localhost
+    (NCCL refuses two ranks on one GPU): an all_reduce and an all_gather
+    of CUDA tensors give the right values. Prints each rank's wall time of
+    a 4 MB f32 all_reduce, averaged over 10 (gloo copies through the host,
+    so no CUDA events). Both processes are stopped at the end."""
+    _need_cuda()
+    import json
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:           # a free port on this host
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, "-c", _SHARE_CHILD, str(r),
+                               str(port), str(1 << 20), "10"],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+        got = json.loads(out.strip().splitlines()[-1])
+        assert got["values_ok"], got
+        print(dict(got, probe="gloo_two_processes_one_card"))

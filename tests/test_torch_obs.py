@@ -289,13 +289,15 @@ def test_envflags_reads_equal_reference(monkeypatch):
     from repro_torch import obs
     from repro_torch.core import envflags
     assert [f.name for f in envflags.defined_flags()] == \
-        ["REPRO_KV_QUANT", "REPRO_MOE_GROUP", "REPRO_OBS", "REPRO_OBS_DIR",
+        ["REPRO_ATTN_KV_CHUNK", "REPRO_ATTN_Q_TILE", "REPRO_BF16_TP_REDUCE",
+         "REPRO_GATHER_PACKED", "REPRO_KV_QUANT", "REPRO_MOE_GROUP",
+         "REPRO_OBS", "REPRO_OBS_DIR", "REPRO_REMAT_POLICY",
          "REPRO_RULES_JSON"]
     ref_specs = {f.name: f for f in ref_flags.defined_flags()}
     for f in envflags.defined_flags():     # each as the reference declares
         r = ref_specs[f.name]
-        assert (f.kind, f.default, f.minimum) == \
-            (r.kind, r.default, r.minimum), f.name
+        assert (f.kind, f.default, f.choices, f.minimum) == \
+            (r.kind, r.default, r.choices, r.minimum), f.name
     for name in ("REPRO_OBS", "REPRO_OBS_DIR"):
         port_flag = {f.name: f for f in envflags.defined_flags()}[name]
         ref_flag = {f.name: f for f in ref_flags.defined_flags()}[name]
