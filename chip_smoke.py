@@ -37,14 +37,23 @@ printing JSON lines:
                  a check that every kernel in the GEMM's library carries
                  "dequant_gemm" in its name, so the split counts them all,
                  and the engine's decode launch timed with the guard on and
-                 off (guard_wall_ms_delta, guard_device_ms_delta)
+                 off (guard_wall_ms_delta, guard_device_ms_delta); then the
+                 ``step_cost`` line (ROADMAP A14): the decode step's FLOPs
+                 counted on meta tensors by repro_torch.analysis.step_cost
+                 (in this process after the phase's timed windows, a fake
+                 default group, a 1 x 1 mesh) equal to the
+                 products the card's step dispatched (2·M·K·N each, #1's
+                 launches among them), beside the measured device ms and
+                 the H100 roofline's bound, whose memory term is the least
+                 traffic (parameters and caches read once; the share a
+                 reading)
   4. serve    -- the same traffic with an m2xfp-packed KV cache
                  (kv_quant="m2xfp", paper Sec. 6.4; the main path's step 5)
                  on the first 2 of the same layers (PACKED_KV_LAYERS): the
                  same assertions, and beside them the packed pages' bytes
                  against phase 3's pages at the same depth; then its
                  decode step split as in phase 3
-  5. guard    -- the serving guard on the first 8 of the same layers
+  5. guard    -- the serving guard on the first 4 of the same layers
                  (GUARD_LAYERS), with
                  a bf16 and an m2xfp-packed KV cache: 12 requests (prompts
                  of 16-64 tokens, 16 new tokens, 8 slots) fault-free with
@@ -114,7 +123,10 @@ printing JSON lines:
                  moments); then the ``tp`` lines: one full-width layer's
                  seven projections cut as t = 2 and t = 4 ranks would hold
                  them (column shards of wq, wk, wv, gate and up; row
-                 shards of wo and down), #1 (m2xfp) and #2 (mxfp4) at M = 8
+                 shards of wo and down), and the full-width recurrent
+                 projections (zamba2-7b's Mamba2 in_proj and out_proj,
+                 xlstm-125m's mLSTM up / w_o / down and sLSTM w / ff_up /
+                 ff_down), #1 (m2xfp) and #2 (mxfp4) at M = 8
                  on every shard against their plain versions, each row
                  projection's partials summed in rank order within
                  TP_BOUND of the whole launch, each shard's time (L2
@@ -130,10 +142,10 @@ printing JSON lines:
                  (the QKV biases and qk-norm weights seeded too, not
                  init's zeros and ones: repro_torch.testing.
                  fill_attention_extras), with the codecs phase's traffic:
-                 qwen2-0.5b at its first 8 of 24 (QKV bias, the tied
+                 qwen2-0.5b at its first 4 of 24 (QKV bias, the tied
                  151,936-row head, 128-column wk/wv), qwen3-8b at its first
-                 4 of 36 (qk-norm), and gemma2-9b at its first 4 of 42 (2
-                 local/global pairs, its window of 4096, soft-caps 50 and
+                 2 of 36 (qk-norm), and gemma2-9b at its first 2 of 42 (a
+                 local/global pair, its window of 4096, soft-caps 50 and
                  30, the tied 256,000-row head) with 128 positions and
                  prompts of 96-160 tokens, so both its rings wrap (read
                  from the caches' position tracks: each ring holds its
@@ -148,14 +160,14 @@ printing JSON lines:
   8. families -- the model families of ROADMAP A6c and A6d at full width,
                  m2xfp weights from SEED, bf16 KV. Embedding input at the
                  model level (no engine serves it): musicgen-large at its
-                 first 8 of 48 layers and pixtral-12b at its first 8 of
+                 first 4 of 48 layers and pixtral-12b at its first 4 of
                  40 (FAMILY_EMBED: the phase's time), 8 slots x
                  32 embeddings through prefill chunks of 8 and through
                  decode_step, slots valid for 32..1 positions: logits at
                  every valid position finite and equal bit for bit, caches
                  equal, the m2xfp kernel launched 7 times per layer per
                  launch. Mixture-of-experts through the engine with the
-                 codecs phase's traffic: olmoe-1b-7b at its first 4 of 16 (64
+                 codecs phase's traffic: olmoe-1b-7b at its first 2 of 16 (64
                  experts, packed (K, E, N)) and mixtral-8x22b at its first
                  2 of 56 (8 experts, dense bf16, as the reference leaves
                  them); for each of the four models, before its runs, the
@@ -193,7 +205,15 @@ printing JSON lines:
                  model's decode step split as in phase 3 (one profiled
                  step, its kernels only, no guard runs); each block's
                  forward against decode at (2, 256, d), dense weights,
-                 within tests/test_recurrent.py's bounds
+                 within tests/test_recurrent.py's bounds; and per model
+                 the recurrent ``mesh`` lines (ROADMAP A13b) on a one-rank
+                 NCCL group: the two shortest requests served again (8
+                 tokens) by an engine on the same weights placed on a 1 x 1
+                 mesh, through the tensor-parallel dispatch, with the
+                 unplaced tokens and #1 launches, and one sharded train
+                 step (MESH_RECURRENT_TRAIN: xlstm-125m 4 blocks, zamba2-7b
+                 6 with one shared-attention application) bit-equal to
+                 make_train_step
   9. train    -- training (ROADMAP A8) of full-width paper-llama2-7b at its
                  first 4 of 32 layers (TRAIN_LAYERS; the depth the card's
                  80 GB holds with f32 masters, m, v and gradients, 18 B a
@@ -301,9 +321,15 @@ N_SLOTS, MAX_LEN = 8, 512
 # parallel phase: on a slow host the script took 1189.1 s of its 1200 s
 # (guard 170.4 s at 16 layers, phase 3 366.9 s; NVIDIA H100 80GB HBM3,
 # 700.00 W), so the earlier paths' depths were cut: the guard, the mesh
-# phase (MESH_LAYERS), qwen2-0.5b (VARIANTS) and olmoe (FAMILY_MOE).
+# phase (MESH_LAYERS), qwen2-0.5b (VARIANTS) and olmoe (FAMILY_MOE). With
+# the recurrent tensor-parallel lines and the step_cost line (about 30 s)
+# a slow host took 1134 s on the wall (1065.0 in the script: phase 3
+# 376.5 s, guard 90.8 at 8 layers, variants 83.9, families 88.3, codecs
+# 52.4; NVIDIA H100 80GB HBM3, 700.00 W), over the 1000 s the script aims
+# at, so the guard runs 4 layers, and VARIANTS, FAMILY_EMBED, FAMILY_MOE
+# and CODEC_LAYERS were halved too (each comment says from what).
 MXFP4_LAYERS = 2
-GUARD_LAYERS = 8
+GUARD_LAYERS = 4
 # The packed-KV serve phase (an earlier path since the guard phase came)
 # runs at a quarter of the depth: with it at full depth and the guard phase
 # the script took 1170 s of its 1200 s limit (packed-KV phase 540 s, guard
@@ -319,8 +345,10 @@ GUARD_REQUESTS, GUARD_TOKENS, GUARD_PROMPTS = 12, 16, (16, 64)
 RECOVERY_STEPS = 3                  # GuardConfig's default
 # Codecs phase: the first CODEC_LAYERS layers; 8 requests (as many as the
 # slots), prompts drawn by SEED from 16..64 tokens, 16 new tokens each.
-# With the train phase at 4 layers (the phase 100.3-117.2 s at 8).
-CODEC_LAYERS = 4
+# With the train phase at 4 layers (the phase 100.3-117.2 s at 8), and
+# at 2 since the recurrent tensor-parallel lines (the phase 52.4 s at 4
+# on a slow host: see GUARD_LAYERS).
+CODEC_LAYERS = 2
 CODEC_TRAFFIC = (8, 16, (16, 64))           # requests, new tokens, prompts
 CODEC_ACTS = [(8, 4096), (64, 11008)]
 CODEC_WEIGHT_COLS = 512     # the CPU side of the Sg-EM search is slow at N
@@ -332,10 +360,12 @@ CODEC_WEIGHT_COLS = 512     # the CPU side of the Sg-EM search is slow at N
 # With the train phase qwen3-8b and gemma2-9b run 4 layers (2 local/global
 # pairs; the phase 142.5-166.4 s at 8), and since the tensor-parallel
 # phase qwen2-0.5b its first 8 of 24 (the phase 118.6 s at 24 on a slow
-# host: see GUARD_LAYERS).
-VARIANTS = [("qwen2-0.5b", 8, MAX_LEN, (16, 64)),
-            ("qwen3-8b", 4, MAX_LEN, (16, 64)),
-            ("gemma2-9b", 4, 128, (96, 160))]
+# host: see GUARD_LAYERS). Since the recurrent tensor-parallel lines
+# qwen2-0.5b runs 4, qwen3-8b and gemma2-9b 2 (one local/global pair; the
+# phase 83.9 s at 8 / 4 / 4 on a slow host: see GUARD_LAYERS).
+VARIANTS = [("qwen2-0.5b", 4, MAX_LEN, (16, 64)),
+            ("qwen3-8b", 2, MAX_LEN, (16, 64)),
+            ("gemma2-9b", 2, 128, (96, 160))]
 # Families phase (ROADMAP A6c, A6d), full widths, m2xfp weights from SEED,
 # bf16 KV. Embedding input runs at the model level (no engine serves it):
 # (arch, layers), 8 slots x FAMILY_POSITIONS embeddings of std 1 from SEED
@@ -356,11 +386,13 @@ VARIANTS = [("qwen2-0.5b", 8, MAX_LEN, (16, 64)),
 # With the train phase olmoe runs its first 8 of 16 (its device-bound
 # serves; the phase 128.9-151.9 s at 16), and since the tensor-parallel
 # phase its first 4 (the phase 108.3 s at 8 on a slow host: see
-# GUARD_LAYERS).
-FAMILY_EMBED = [("musicgen-large", 8), ("pixtral-12b", 8)]
+# GUARD_LAYERS). Since the recurrent tensor-parallel lines, olmoe runs 2,
+# musicgen and pixtral 4 each (the phase 88.3 s at 4 / 8 / 8 on a slow
+# host: see GUARD_LAYERS).
+FAMILY_EMBED = [("musicgen-large", 4), ("pixtral-12b", 4)]
 FAMILY_POSITIONS = 32
 FAMILY_LENGTHS = (32, 30, 25, 20, 13, 8, 5, 1)
-FAMILY_MOE = [("olmoe-1b-7b", 4), ("mixtral-8x22b", 2)]
+FAMILY_MOE = [("olmoe-1b-7b", 2), ("mixtral-8x22b", 2)]
 # Train phase (ROADMAP A8): full-width paper-llama2-7b at its first
 # TRAIN_LAYERS layers. Plain single-device AdamW holds f32 masters, m and v,
 # f32 gradients and a bf16 compute copy: 18 B a parameter, 121 GB at 32
@@ -391,6 +423,19 @@ RECURRENT = [("xlstm-125m", 12, (12, 16, (16, 64))),
 # repro_torch.testing.recurrent.TOLERANCE, the planted fault in slot
 # RECURRENT_FAULT_SLOT (repro_torch.testing.recurrent says both)
 RECURRENT_CHECK = (2, 256)
+# the recurrent mesh lines (ROADMAP A13b): the MESH_RECURRENT requests
+# with the shortest prompts of each recurrent serve again on placed
+# parameters, their first MESH_RECURRENT_TOKENS tokens, and one sharded
+# train step per model at (blocks, batch, seq): xlstm-125m at its first 4
+# blocks (2 mLSTM/sLSTM pairs), zamba2-7b at its first 6 (5 Mamba2 layers,
+# then the shared attention block once). At 4 requests x 16 tokens and
+# xlstm-125m's step at 12 blocks and (2, 128) these lines took 35.0 s for
+# xlstm-125m alone (serve 19.1, train 6.7 + 8.7: the sLSTM's step loop)
+# and 6.5 for zamba2-7b (NVIDIA H100 80GB HBM3, 700.00 W); cut so that
+# they add about 15 s to the script
+MESH_RECURRENT, MESH_RECURRENT_TOKENS = 2, 8
+MESH_RECURRENT_TRAIN = {"xlstm-125m": (4, 2, 64),
+                        "zamba2-7b": (6, 1, 128)}
 RECURRENT_FAULT_SLOT = 3
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 2048, 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
@@ -834,15 +879,91 @@ def decode_breakdown(eng, device, kern, steps: int = 3, guard: bool = True):
         raise AssertionError(
             f"device time {total} ms per step exceeds the wall time "
             f"({wall * 1e3} ms, {wall_profiled * 1e3} ms profiled)")
-    emit("decode_breakdown", model=eng.cfg.name,
-         codec=eng.cfg.quant_format, kv_quant=eng.cfg.kv_quant,
-         layers=eng.cfg.n_layers, slots=b,
-         wall_ms=wall * 1e3, profiled_wall_ms=wall_profiled * 1e3,
-         device_ms=total, packed_gemm_ms=gemm, gemm_name_filter=tag,
-         other_device_ms=total - gemm, device_idle_share=idle,
-         gemm_kernel_names=names,
-         top_kernels_ms={k[:80]: v for k, v in top},
-         **(guard_cost(eng, device) if guard else {}))
+    line = dict(model=eng.cfg.name,
+                codec=eng.cfg.quant_format, kv_quant=eng.cfg.kv_quant,
+                layers=eng.cfg.n_layers, slots=b,
+                wall_ms=wall * 1e3, profiled_wall_ms=wall_profiled * 1e3,
+                device_ms=total, packed_gemm_ms=gemm, gemm_name_filter=tag,
+                other_device_ms=total - gemm, device_idle_share=idle,
+                gemm_kernel_names=names,
+                top_kernels_ms={k[:80]: v for k, v in top},
+                **(guard_cost(eng, device) if guard else {}))
+    emit("decode_breakdown", **line)
+    return line
+
+
+def step_cost_line(eng, device, breakdown: dict) -> None:
+    """The ``step_cost`` line (ROADMAP A14): one all-slots decode step of
+    phase 3's engine run on the card under ``step_cost.count`` (every aten
+    product seen by its dispatch mode, each #1 launch at
+    ``kernels.ops.product_scope``: 2·M·K·N each) against the same step
+    (``LAYERS`` layers, ``N_SLOTS`` slots, caches of ``MAX_LEN``
+    positions) counted on meta tensors by ``step_cost.count_cells`` in
+    this process (a fake default group, a 1 x 1 mesh: the mesh phase's
+    NCCL group comes later), after phase 3's timed windows: the FLOPs
+    must be equal. Printed beside ``breakdown``'s device ms
+    (decode_breakdown) with the H100 roofline of the meta count -- its
+    memory term the least traffic (``hbm_bytes_per_device``: parameters
+    and caches read once, logits written once) -- and the share
+    ``bound_ms / device_ms`` (a reading). The unfused ops' sum
+    (``hbm_bytes_upper_per_device``) is printed too; it bounds no time."""
+    from repro_torch.analysis.roofline import HBM_BW, model_flops, roofline
+    from repro_torch.analysis.step_cost import count, count_cells, cost_spec
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step
+    b = eng.n_slots
+    tokens = torch.zeros((b, 1), dtype=torch.long, device=device)
+    index = torch.full((b,), 128, dtype=torch.long, device=device)
+
+    def step():
+        out = decode_step(eng.params, eng.cfg, {"tokens": tokens},
+                          eng.caches, index)
+        torch.cuda.synchronize()
+        return out
+    cfg = get_config("paper-llama2-7b", quant="serve", quant_format="m2xfp",
+                     kv_quant="none", n_layers=LAYERS)
+    if cfg != eng.cfg or eng.max_len != MAX_LEN or b != N_SLOTS:
+        raise AssertionError(f"step_cost: the meta count is of {cfg}, "
+                             f"the engine's config is {eng.cfg}")
+    card = count(step, device.type,
+                 reads=(eng.params, eng.caches, tokens, index))
+    if torch.distributed.is_initialized():
+        raise AssertionError("step_cost: a default process group exists; "
+                             "the meta count makes its own")
+    t0 = time.perf_counter()
+    meta, = count_cells([cost_spec(cfg, "decode", N_SLOTS, MAX_LEN,
+                                   (1, 1))])
+    meta_wall_s = time.perf_counter() - t0
+    if isinstance(meta, str):
+        raise AssertionError(f"step_cost: the meta count raised:\n{meta}")
+    rt = roofline(meta["flops_per_device"], meta["hbm_bytes_per_device"],
+                  meta["collective_bytes_per_device"], 1,
+                  model_flops(eng.cfg, {"kind": "decode", "batch": b}))
+    bound_ms = max(rt.compute_s, rt.memory_s, rt.collective_s) * 1e3
+    equal = card["flops_per_device"] == meta["flops_per_device"]
+    emit("step_cost", model=eng.cfg.name, layers=eng.cfg.n_layers,
+         slots=b, cache_positions=eng.max_len, mesh="1x1 (data, model)",
+         card_flops=card["flops_per_device"],
+         card_packed_products=card["products"],
+         card_packed_flops=card["product_flops"],
+         meta_flops=meta["flops_per_device"], flops_equal=equal,
+         meta_hbm_bytes=meta["hbm_bytes_per_device"],
+         card_hbm_bytes=card["hbm_bytes_per_device"],
+         meta_hbm_bytes_upper=meta["hbm_bytes_upper_per_device"],
+         card_hbm_bytes_upper=card["hbm_bytes_upper_per_device"],
+         model_flops=rt.model_flops, dominant=rt.dominant,
+         compute_ms=rt.compute_s * 1e3, memory_ms=rt.memory_s * 1e3,
+         unfused_ops_memory_ms=meta["hbm_bytes_upper_per_device"]
+         / HBM_BW * 1e3,
+         bound_ms=bound_ms, device_ms=breakdown["device_ms"],
+         wall_ms=breakdown["wall_ms"],
+         share_of_bound=bound_ms / breakdown["device_ms"],
+         meta_count_s=meta["count_s"], meta_cell_s=meta["seconds"],
+         meta_wall_s=meta_wall_s, card_count_s=card["count_s"])
+    if not equal:
+        raise AssertionError(f"step_cost: {meta['flops_per_device']} FLOPs "
+                             f"on meta, {card['flops_per_device']} "
+                             f"dispatched on the card")
 
 
 def _device_ms(prof, steps: int) -> float:
@@ -2079,7 +2200,133 @@ def recurrent_serve(cfg, params, traffic, device, kern, kernels):
                                   prompt_len=len(prompts[rid]),
                                   equal_to_fresh_engine=True,
                                   fresh_engine_s=twin_s))
-    return eng, launches
+    return eng, launches, prompts, outs
+
+
+def mesh_recurrent(cfg, full, params, prompts, want, n_tokens, device,
+                   kern, kernels) -> int:
+    """The recurrent ``mesh`` lines (ROADMAP A13b) on a one-rank NCCL
+    group and a 1 x 1 ("data", "model") mesh: the MESH_RECURRENT shortest
+    requests of the recurrent serve (``prompts``, its tokens ``want``)
+    served again for their first MESH_RECURRENT_TOKENS tokens by an engine
+    on ``params`` placed by param_shardings (states by cache_shardings),
+    through the tensor-parallel dispatch, with recurrent_serve's #1
+    launch count and the unplaced tokens; then
+    one sharded train step at MESH_RECURRENT_TRAIN's depth and batch,
+    bit-equal to make_train_step. Returns ``kern``'s serve launches."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import (local_tree,
+                                                  param_shardings,
+                                                  place_tree, use_sharding)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.testing.distributed import Recorder
+    from repro_torch.testing.recurrent import gemm_launches
+    from repro_torch.train import (AdamWConfig, make_sharded_train_step,
+                                   make_train_state, make_train_step,
+                                   train_state_shardings)
+    from repro_torch.tree import tree_leaves
+    kind = device.type
+    dist.init_process_group("nccl" if kind == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_test_mesh((1, 1), ("data", "model"), kind)
+        placed = place_tree(params, param_shardings(params, mesh))
+        # greedy tokens: a request's first n are those of a longer run
+        short = sorted(range(len(prompts)),
+                       key=lambda i: len(prompts[i]))[:MESH_RECURRENT]
+        n_tokens = min(n_tokens, MESH_RECURRENT_TOKENS)
+        prompts = [prompts[i] for i in short]
+        want = [want[i][:n_tokens] for i in short]
+        with use_sharding(mesh):
+            eng = ServeEngine(placed, cfg, n_slots=N_SLOTS, max_len=MAX_LEN,
+                              prefill_chunk=CHUNK, device=device)
+        for k in kernels:                 # the path's counts start here
+            k.launches = 0
+        with Recorder() as rec:
+            got = eng.generate(prompts, n_tokens)
+            torch.cuda.synchronize()
+        launches = kern.launches
+        others = {k.name: k.launches for k in kernels if k is not kern}
+        expected = gemm_launches(cfg) * eng.stats.steps
+        dispatched = {kd: sum(1 for g in rec.gemms if g["kind"] == kd)
+                      for kd in ("column", "row", "replicated", "heads")}
+        states = {name: [str(p) for p in leaf.placements]
+                  for name, leaf in _first_leaves(eng.caches).items()}
+        g = eng.guard_summary()
+        agree = float(np.mean([a == b for a, b in zip(got, want)]))
+        serve_s = time.perf_counter() - t0
+        emit("mesh", check="serve", model=cfg.name, blocks=cfg.n_layers,
+             mesh="1x1 (data, model)", requests=len(prompts),
+             tokens_out=eng.stats.generated_tokens, steps=eng.stats.steps,
+             engine_chunk=eng.chunk, tokens_equal=got == want,
+             token_agreement_vs_unplaced=agree, kernel=kern.name,
+             launches=launches, launches_expected=expected,
+             tp_dispatches=dispatched, state_placements=states,
+             weight_moves=sum(1 for c in rec.collectives
+                              if c["moving"] == "weight"),
+             guard=g, seconds=serve_s)
+        if got != want or launches != expected or any(others.values()) \
+                or not dispatched["column"] or not dispatched["row"] \
+                or g["quarantines"] or g["state"] != "healthy":
+            raise AssertionError(
+                f"mesh serve {cfg.name}: tokens equal {got == want}, "
+                f"launches {launches}/{expected} {others}, dispatches "
+                f"{dispatched}, guard {g}")
+        del eng, placed
+        # one sharded train step against the plain one
+        blocks, b, s = MESH_RECURRENT_TRAIN[full.name]
+        tcfg = get_config(full.name, n_layers=blocks,
+                          block_kinds=full.kinds[:blocks])
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        state = make_train_state(gen, tcfg, device=device)
+        tok = torch.randint(0, tcfg.vocab_size, (b, s + 1), device=device,
+                            generator=gen)
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+        t1 = time.perf_counter()
+        plain, pm = make_train_step(tcfg, opt)(state, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        placed = place_tree(state, train_state_shardings(state, mesh))
+        t1 = time.perf_counter()
+        with Recorder() as rec:
+            sharded, sm = make_sharded_train_step(tcfg, opt, mesh)(placed,
+                                                                    batch)
+            torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t1
+        got = local_tree(sharded)
+        same = {k: bool(torch.equal(pm[k], sm[k]))
+                for k in ("loss", "grad_norm", "lr")}
+        for part, tree in (("params", got["params"]), ("opt", got["opt"])):
+            same[part] = all(torch.equal(a, c) for a, c in zip(
+                tree_leaves(tree), tree_leaves(plain[part])))
+        kinds = {kd: sum(1 for g in rec.gemms if g["kind"] == kd)
+                 for kd in ("column", "row", "heads")}
+        emit("mesh", check="train", model=tcfg.name, blocks=blocks,
+             kinds=tcfg.kinds, mesh="1x1 (data, model)", batch=b, seq=s,
+             loss=float(sm["loss"]), grad_norm=float(sm["grad_norm"]),
+             bits_equal=same, plain_step_s=plain_s,
+             sharded_step_s=sharded_s, tp_dispatches=kinds,
+             seconds=time.perf_counter() - t0)
+        if not all(same.values()) or not kinds["column"] \
+                or not kinds["row"]:
+            raise AssertionError(f"mesh train {tcfg.name}: {same}, "
+                                 f"dispatches {kinds}")
+        del state, plain, placed, sharded, got
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _first_leaves(caches) -> dict:
+    """{leaf name: the first placed leaf of that name} of a cache tree."""
+    from repro_torch.distributed.sharding import map_with_path
+    out = {}
+    map_with_path(lambda path, t: out.setdefault(path[-1], t), caches)
+    return out
 
 
 def recurrent_block_cost(cfg, kind: str, p: dict, cache: dict,
@@ -2159,9 +2406,14 @@ def recurrent_phase(timer, device, kern, kernels) -> int:
         gemm_shape_check(timer, arch, weights, kern, device, "recurrent")
         seconds["gemm_check"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        eng, n = recurrent_serve(cfg, params, traffic, device, kern, kernels)
+        eng, n, prompts, outs = recurrent_serve(cfg, params, traffic,
+                                                device, kern, kernels)
         seconds["serve_and_twin"] = time.perf_counter() - t0
         launches += n
+        t0 = time.perf_counter()
+        launches += mesh_recurrent(cfg, full, params, prompts, outs,
+                                   traffic[1], device, kern, kernels)
+        seconds["mesh"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         tokens = torch.randint(0, cfg.vocab_size, (N_SLOTS, 1),
                                generator=torch.Generator(device=device)
@@ -2889,12 +3141,7 @@ def mesh_dryrun(device) -> None:
         for shape in applicable_shapes(get_config(arch)):
             trees = dryrun.build_trees(dryrun.cell_config(arch, shape),
                                        shape, memo)
-            r = dryrun.run_cell(arch, shape, False, save=False,
-                                trees=trees, mesh=one)
-            if not r["ok"]:
-                raise AssertionError(f"dry-run cell {arch} {shape}: "
-                                     f"{r['error']}")
-            b = r["bytes_per_rank"]
+            b = dryrun.bytes_per_rank(trees, one, dryrun.cell_rules(shape))
             if b["total"] <= total:
                 fits.append(f"{arch} {shape}")
             emit("mesh_dryrun", arch=arch, shape=shape, mesh="1x1",
@@ -3098,20 +3345,41 @@ def _ulp_f32(s: torch.Tensor) -> torch.Tensor:
 def tp_shards(device) -> None:
     """The ``tp`` lines (module docstring, phase 6c): per codec and shard
     count, every column and row shard of one full-width paper-llama2-7b
-    layer's seven projections at M = TP_M, cut from the whole weight's
-    packed streams as ``model_local`` gives a rank its shard (columns, or
-    K rows at 32-row group boundaries)."""
+    layer's seven projections and of the full-width recurrent blocks'
+    eight (zamba2-7b's Mamba2, xlstm-125m's mLSTM and sLSTM) at M = TP_M,
+    cut from the whole weight's packed streams as ``model_local`` gives a
+    rank its shard (columns, or K rows at 32-row group boundaries)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import layout, ref
     from repro_torch.kernels.m2xfp_matmul import KERNEL as M2XFP
     from repro_torch.kernels.mxfp4_matmul import KERNEL as MXFP4
+    from repro_torch.models.xlstm import slstm_ff
     cfg = get_config("paper-llama2-7b")
     d, q, ff = cfg.d_model, cfg.n_heads * cfg.hd, cfg.d_ff
     kv = cfg.n_kv_heads * cfg.hd
-    projections = [("wq", d, q, "column"), ("wk", d, kv, "column"),
-                   ("wv", d, kv, "column"), ("wo", q, d, "row"),
-                   ("gate", d, ff, "column"), ("up", d, ff, "column"),
-                   ("down", ff, d, "row")]
+    projections = [(cfg.name, "wq", d, q, "column"),
+                   (cfg.name, "wk", d, kv, "column"),
+                   (cfg.name, "wv", d, kv, "column"),
+                   (cfg.name, "wo", q, d, "row"),
+                   (cfg.name, "gate", d, ff, "column"),
+                   (cfg.name, "up", d, ff, "column"),
+                   (cfg.name, "down", ff, d, "row")]
+    # the recurrent blocks' projections (ROADMAP A13b): zamba2-7b's Mamba2
+    # in_proj and out_proj, xlstm-125m's mLSTM up / w_o / down and sLSTM
+    # w / ff_up / ff_down
+    z = get_config("zamba2-7b")
+    zin = z.ssm_expand * z.d_model
+    zn = 2 * zin + 2 * z.ssm_state + zin // z.ssm_head_dim
+    x = get_config("xlstm-125m")
+    xd, xff = x.d_model, slstm_ff(x.d_model)
+    projections += [(z.name, "mamba/in_proj", z.d_model, zn, "column"),
+                    (z.name, "mamba/out_proj", zin, z.d_model, "row"),
+                    (x.name, "mlstm/up", xd, 4 * xd, "column"),
+                    (x.name, "mlstm/w_o", xd, 2 * xd, "column"),
+                    (x.name, "mlstm/down", 2 * xd, xd, "row"),
+                    (x.name, "slstm/w", xd, 4 * xd, "column"),
+                    (x.name, "slstm/ff_up", xd, xff, "column"),
+                    (x.name, "slstm/ff_down", xff, xd, "row")]
     codecs = [("m2xfp", M2XFP, layout.pack_w_sgem, ref.decode_w_sgem_ref,
                ref.m2xfp_matmul_ref),
               ("mxfp4", MXFP4, layout.pack_w_mxfp4, ref.decode_w_mxfp4_ref,
@@ -3120,7 +3388,7 @@ def tp_shards(device) -> None:
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     t0 = time.perf_counter()
     for codec, kern, pack, decode, plain in codecs:
-        for name, k, n, kind in projections:
+        for model, name, k, n, kind in projections:
             w = torch.randn(k, n, generator=gen, device=device) * 0.02
             wp = pack(w)
             del w
@@ -3166,8 +3434,8 @@ def tp_shards(device) -> None:
                         raise AssertionError(
                             f"tp {codec} {name} t={t}: the row partials' "
                             f"sum is outside {TP_BOUND}")
-                emit("tp", codec=codec, kernel=kern.name, projection=name,
-                     kind=kind, K=k, N=n, t=t, M=TP_M,
+                emit("tp", codec=codec, kernel=kern.name, model=model,
+                     projection=name, kind=kind, K=k, N=n, t=t, M=TP_M,
                      shard=(k, n // t) if kind == "column" else (k // t, n),
                      tolerance=TOLERANCE, max_ratio_to_tolerance=max(ratios),
                      max_abs_err=max(errs), shard_kernel_ms=shards,
@@ -3249,7 +3517,7 @@ def main() -> int:
 
     kernels = (M2XFP, MXFP4, QUANT, QKERNEL, FLASH)
     eng, launches, bf16_kv = serve_phase("m2xfp", device, M2XFP, kernels)
-    decode_breakdown(eng, device, M2XFP)
+    step_cost_line(eng, device, decode_breakdown(eng, device, M2XFP))
     params = eng.params
     del eng
     gc.collect()

@@ -1,4 +1,4 @@
-"""Tensor-parallel compute on weight shards (ROADMAP A13): the port's
+"""Tensor-parallel compute on weight shards (ROADMAP A13, A13b): the port's
 counterpart of what GSPMD makes of the reference's model under a mesh and
 its ``constrain`` annotations.
 
@@ -32,9 +32,43 @@ before its product, as GSPMD does (``model_local``); no weight is gathered
 along "model". ``local_apply`` runs any other op of the model on the local
 tensors (norms, rope, the attention core, the expert routing).
 
+The recurrent blocks (ROADMAP A13b; ``models/xlstm.py``,
+``models/mamba2.py``) use the same dispatch. What moves along "model",
+and why (activations only; no weight is gathered along "model"):
+
+  * the outputs of the concatenated column products -- Mamba2's
+    ``in_proj`` ([z | x B C | dt], split at din and 2 din + 2 N), the
+    mLSTM's ``up`` ([xin | z]) and the sLSTM's ``w`` ([z | i | f | o]) --
+    are all-gathered whole (``gathered``): a contiguous column shard is
+    not one rank's heads of each part, and the conv, the gates, B and C
+    read every channel. The conv and the gates then run whole on every
+    rank (elementwise, or a (din, 2H) product), the per-head parts
+    (q/k/v on the (H/t, P, P) blocks, the chunkwise cell or the SSD scan,
+    the one-step updates of C, n, m and ssm) on this rank's heads
+    (``heads_of``), against its head-sharded states;
+  * the gated cell output is all-gathered for the norm over din (the
+    mLSTM's ``gn``, Mamba2's gated ``rms_norm``), which then runs on the
+    whole row with ``layers._sum_halves``' folds: the unsharded port's
+    bits, where an all-reduce of per-rank sums of squares would fold in
+    another order. ``down`` / ``out_proj`` / ``ff_down`` are then
+    row-parallel as above (the K-shard of the whole row is the rank's
+    heads when they divide);
+  * the sLSTM runs whole on every rank (its c and h are replicated by
+    the reference's specs, its n and m, sharded over "heads" by name,
+    are gathered for each decode step); ``ff_up`` is column- and
+    ``ff_down`` row-parallel.
+
+Cheaper, not built: laying out each concatenated weight's columns per
+head at placement ([z_r | x_r | dt_r] on rank r, B and C replicated) would
+make those products column-parallel with no gather, but the leaves would
+no longer be the reference's (checkpoints and specs are shared); and an
+all-reduce of per-rank sums of squares would move 4 bytes a row for the
+norm where the gather moves din, at the cost of the unsharded bits.
+
 ``on_gemm``, when set, is called with every product dispatch (its kind
-and the local shapes of x and the weight): the recorder of
-``repro_torch.testing.distributed`` sets it.
+and the local shapes of x and the weight; "heads" for the mLSTM's
+per-head block-diagonal q/k/v products on this rank's (H/t, P, P)
+blocks): the recorder of ``repro_torch.testing.distributed`` sets it.
 """
 from __future__ import annotations
 
@@ -49,9 +83,11 @@ from .sharding import active_mesh, constrain
 __all__ = [
     "tp_mesh", "is_dtensor", "model_placement", "gather_weight",
     "model_local", "wrap",
-    "unwrap", "to_placement", "column", "row", "expert", "replicated",
-    "local_apply", "full", "tp_rank",
-    "tp_size", "kind_of", "shard", "replicate",
+    "unwrap", "to_placement", "record_gemm", "column", "row", "expert",
+    "replicated",
+    "local_apply", "gathered", "heads_of", "model_whole",
+    "like_leaf",
+    "full", "tp_rank", "tp_size", "kind_of", "shard", "replicate",
 ]
 
 # the "model" submeshes: process-wide, as the active mesh is
@@ -196,7 +232,8 @@ def kind_of(placement, n_dim: int, k_dim: int = 0,
                      f"{placement} along 'model'")
 
 
-def _record_gemm(kind: str, x_local, w_shape) -> None:
+def record_gemm(kind: str, x_local, w_shape) -> None:
+    """Report a product on local shapes to ``on_gemm`` (when set)."""
     if on_gemm is not None:
         on_gemm(kind, tuple(x_local.shape), tuple(w_shape))
 
@@ -206,7 +243,7 @@ def column(x, product, w_shape):
     -> this rank's (..., N/t) columns, a Shard(-1) DTensor."""
     from torch.distributed.tensor import Partial
     xl = unwrap(to_placement(x, replicate()), Partial())
-    _record_gemm("column", xl, w_shape)
+    record_gemm("column", xl, w_shape)
     out = product(xl)
     return wrap(out, shard(out.dim() - 1))
 
@@ -218,7 +255,7 @@ def row(x, product, w_shape, out_dtype, axes):
     the logical ``axes`` of the output, then cast to ``out_dtype``."""
     from torch.distributed.tensor import Partial
     xl = unwrap(to_placement(x, shard(x.dim() - 1)))
-    _record_gemm("row", xl, w_shape)
+    record_gemm("row", xl, w_shape)
     part = product(xl)
     from repro_torch.models.numerics import bf16_tp_reduce
     if bf16_tp_reduce():
@@ -230,7 +267,7 @@ def expert(x, product, w_shape, dim: int = 1):
     """Expert-parallel product: x at Shard(``dim``) (its E axis), the
     local experts' products, the output at Shard(``dim``)."""
     xl = unwrap(to_placement(x, shard(dim)))
-    _record_gemm("expert", xl, w_shape)
+    record_gemm("expert", xl, w_shape)
     return wrap(product(xl), shard(dim))
 
 
@@ -238,7 +275,7 @@ def replicated(x, product, w_shape):
     """The whole product on every rank (a weight not sharded over
     "model")."""
     xl = unwrap(to_placement(x, replicate()))
-    _record_gemm("replicated", xl, w_shape)
+    record_gemm("replicated", xl, w_shape)
     return wrap(product(xl), replicate())
 
 
@@ -256,16 +293,26 @@ def local_apply(fn, *args, placement=None):
     ``model_local`` -- plain tensors and other values as they are; dicts
     and lists of them too). The result (a tensor, or a dict/tuple of them)
     is wrapped at ``placement``: by default that of the first sharded
-    activation, else Replicate. A replicated activation or weight used
-    beside a sharded activation gets a Partial gradient (each rank's part
-    of its gradient is its shard's)."""
+    activation, else Replicate; a tuple of placements wraps a tuple result
+    element by element (None: that element is left local). A replicated
+    activation or weight used beside a sharded activation, or for a
+    sharded result (``fn`` computes this rank's part of it), gets a
+    Partial gradient (each rank's part of its gradient is its shard's).
+    Where no argument is a DTensor (unplaced tensors) it is
+    ``fn(*args)``."""
     from torch.distributed.tensor import Partial
-    mm = tp_mesh()
     found = []
     _map(lambda t: found.append(t) if is_dtensor(t) else None, args)
+    if not found:
+        return fn(*args)
+    mm = tp_mesh()
     sharded = next((t.placements[0] for t in found
                     if t.device_mesh == mm and t.placements[0].is_shard()),
                    None)
+    pl = placement or sharded or replicate()
+    split = sharded is not None or any(
+        p is not None and p.is_shard()
+        for p in (pl if isinstance(pl, tuple) else (pl,)))
 
     def local(t):
         if not is_dtensor(t):
@@ -274,7 +321,63 @@ def local_apply(fn, *args, placement=None):
             return model_local(t)
         rep = t.placements[0].is_replicate()
         return t.to_local(grad_placements=[Partial()]
-                          if rep and sharded is not None else None)
+                          if rep and split else None)
     out = fn(*_map(local, args))
-    pl = placement or sharded or replicate()
+    if isinstance(pl, tuple):
+        return tuple(o if p is None else _map(lambda t, p=p: wrap(t, p, mm),
+                                              o)
+                     for o, p in zip(out, pl))
     return _map(lambda t: wrap(t, pl, mm), out)
+
+
+def gathered(x):
+    """Activation ``x`` whole on every rank: a DTensor at Replicate (an
+    all-gather along "model" where it is sharded, differentiable); a plain
+    tensor as it is."""
+    return to_placement(x, replicate()) if is_dtensor(x) else x
+
+
+def heads_of(n: int) -> tuple:
+    """(first, count) of this rank's heads out of ``n``: a contiguous
+    1/t of them where ``n`` divides over "model" (the rule that shards a
+    per-head weight or state over "heads"), else all of them."""
+    t = tp_size()
+    if t == 1 or n % t:
+        return 0, n
+    return tp_rank() * (n // t), n // t
+
+
+def _whole_along_model(leaf) -> list:
+    names = leaf.device_mesh.mesh_dim_names or ()
+    return [replicate() if n == "model" else p
+            for n, p in zip(names, leaf.placements)]
+
+
+def model_whole(leaf) -> torch.Tensor:
+    """Placed state ``leaf``'s local block along the mesh dims other than
+    "model", whole along "model" (an all-gather where it is sharded
+    there); a plain tensor as it is."""
+    if not is_dtensor(leaf):
+        return leaf
+    target = _whole_along_model(leaf)
+    if target != list(leaf.placements):
+        leaf = leaf.redistribute(leaf.device_mesh, target)
+    return leaf.to_local()
+
+
+def like_leaf(leaf, value: torch.Tensor):
+    """``value`` stored at state leaf ``leaf``'s placement: a plain tensor
+    where ``leaf`` is one; else a DTensor on ``leaf``'s mesh at its
+    placements, ``value`` taken as this rank's part when it has the local
+    part's shape, else as ``model_whole``'s (each rank keeps its block,
+    nothing is sent)."""
+    if not is_dtensor(leaf):
+        return value
+    from torch.distributed.tensor import DTensor
+    mesh = leaf.device_mesh
+    if tuple(value.shape) == tuple(leaf.to_local().shape):
+        return DTensor.from_local(value, mesh, leaf.placements,
+                                  run_check=False)
+    return DTensor.from_local(value, mesh, _whole_along_model(leaf),
+                              run_check=False).redistribute(
+        mesh, leaf.placements)

@@ -11,8 +11,17 @@ Dispatch is by the device of the activations, and nothing else:
 The kernels take any M and N (the row and column edges are masked inside
 the kernel), so unlike the reference nothing here pads rows, picks a TPU
 block or requires blocks to divide M, N or K.
+
+``packed_matmul`` -- the model's one entry into a packed GEMM -- runs
+inside ``product_scope(x, w_packed, n)`` when a step counter sets it
+(``repro_torch.analysis.step_cost``): the counter takes the product as
+one operation, whatever runs inside (the kernel, which it cannot see, or
+the plain version's decode and product). A "meta" x (a step counted on
+shapes alone) gives the (M, N) f32 output without computing it.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -60,6 +69,11 @@ def m2xfp_quantize(x: torch.Tensor) -> dict:
                      lambda x: ref.m2xfp_quantize_ref(x.T))
 
 
+# set by a step counter: called as product_scope(x, w_packed, n), it gives
+# the context each packed product runs in (module docstring)
+product_scope = None
+
+
 def packed_matmul(x: torch.Tensor, w_packed: dict, fmt: str) -> torch.Tensor:
     """Codec-dispatched packed GEMM: x (M, K) @ ``fmt``-packed W -> f32."""
     from repro_torch.core.codecs import get_codec, kernel_codecs
@@ -67,4 +81,11 @@ def packed_matmul(x: torch.Tensor, w_packed: dict, fmt: str) -> torch.Tensor:
     if codec.kernel is None:
         raise ValueError(f"codec {fmt!r} has no serve kernel; kernel-backed "
                          f"codecs: {', '.join(kernel_codecs())}")
-    return codec.kernel(x, w_packed)
+    n = w_packed["codes"].shape[-1]
+    scope = contextlib.nullcontext() if product_scope is None \
+        else product_scope(x, w_packed, n)
+    with scope:
+        if x.is_meta:
+            return torch.empty((x.shape[0], n), dtype=torch.float32,
+                               device="meta")
+        return codec.kernel(x, w_packed)

@@ -1,13 +1,16 @@
-"""The §Dry-run table from the port's dry-run JSONs (port of
+"""The §Dry-run and §Roofline tables from the port's dry-run JSONs (port of
 repro.launch.report).
 
     PYTHONPATH=src python -m repro_torch.launch.report
 
-One row per arch x applicable shape: OK/FAIL and the bytes per rank on the
-256- and 512-rank meshes (parameters, optimizer state, caches, inputs).
-There is no §Roofline table: its compute, memory and collective times come
-from XLA's compiled HLO (``analysis/hlo.py``, ``analysis/roofline.py``),
-which the port does not have; the port's roofline is ROADMAP A3.
+§Dry-run: one row per arch x applicable shape, OK/FAIL and the bytes per
+rank on the 256- and 512-rank meshes (parameters, optimizer state,
+caches, inputs). §Roofline: per cell on the 256-rank mesh, the compute,
+memory and collective times of the counted step on H100s
+(``analysis/step_cost.py``, ``analysis/roofline.py``), the dominant term,
+MODEL_FLOPS and the shares the reference's table gives. The reference's
+peak bytes per device come from XLA's memory analysis, which the port
+does not have.
 """
 from __future__ import annotations
 
@@ -16,12 +19,8 @@ import json
 import os
 
 from repro_torch.configs import get_config
-from repro_torch.configs.shapes import applicable_shapes
+from repro_torch.configs.shapes import SHAPES, applicable_shapes
 from repro_torch.launch.dryrun import DRYRUN_ARCHS, RESULTS_DIR
-
-NO_ROOFLINE = ("No §Roofline table: its times come from XLA's compiled HLO "
-               "(analysis/hlo.py, analysis/roofline.py), which the port does "
-               "not have; the port's roofline is ROADMAP A3.")
 
 
 def load(mesh: str, directory: str = RESULTS_DIR) -> dict:
@@ -61,11 +60,46 @@ def dryrun_table(cells256: dict, cells512: dict) -> str:
     return "\n".join(lines)
 
 
+def _fmt_s(x: float) -> str:
+    return f"{x:.2f}s" if x >= 1 else f"{x * 1e3:.3g}ms"
+
+
+def roofline_table(cells: dict) -> str:
+    lines = [
+        "| arch | shape | compute | memory | collective | dominant | "
+        "MODEL_FLOPS | useful ratio | roofline frac | count s |",
+        "|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for arch in DRYRUN_ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES:
+            if shape not in applicable_shapes(cfg):
+                lines.append(f"| {arch} | {shape} |" + " — |" * 7
+                             + " skipped: full-attention arch at 500k |")
+                continue
+            r = cells.get((arch, shape))
+            if r is None or not r.get("ok") or "roofline" not in r:
+                err = (r or {}).get("error", "missing")
+                lines.append(f"| {arch} | {shape} | FAILED: {err[:60]} |"
+                             + " — |" * 7)
+                continue
+            rt = r["roofline"]
+            lines.append(
+                f"| {arch} | {shape} | {_fmt_s(rt['compute_s'])} | "
+                f"{_fmt_s(rt['memory_s'])} | {_fmt_s(rt['collective_s'])} | "
+                f"**{rt['dominant']}** | {rt['model_flops']:.2e} | "
+                f"{rt['useful_ratio']:.3f} | {rt['roofline_fraction']:.4f} | "
+                f"{r['step_cost']['seconds']:.1f} |")
+    return "\n".join(lines)
+
+
 def main():
     print("## §Dry-run (bytes per rank on the meta device, 16x16 and "
           "2x16x16 logical meshes)\n")
     print(dryrun_table(load("pod256"), load("pod512")))
-    print("\n" + NO_ROOFLINE)
+    print("\n## §Roofline (single pod, 256 H100s: analysis/roofline.py's "
+          "constants)\n")
+    print(roofline_table(load("pod256")))
 
 
 if __name__ == "__main__":

@@ -371,7 +371,10 @@ def _attend_one_tp(q, rows, out_dtype, cfg, cache, index, valid=None,
     rows = {name: _tree_full(val) for name, val in rows.items()}
     pos = cache["pos"].to_local()                  # replicated: all of it
     slot = torch.remainder(index, pos.shape[1])
-    kv_page_write({"pos": pos}, {"pos": index[:, None]}, slot, valid)
+    if pos.shape[0] == index.shape[0]:
+        kv_page_write({"pos": pos}, {"pos": index[:, None]}, slot, valid)
+    else:
+        pos = _write_all_slots(pos, cache["k"], index, valid)
     pages = {}
     for name in ("k", "v"):
         leaf = cache[name]
@@ -399,6 +402,33 @@ def _attend_one_tp(q, rows, out_dtype, cfg, cache, index, valid=None,
         kl, vl = _select_kv(ql, kl, vl, cfg)
         return _attend_page(ql, kl, vl, pos, index, cfg, out_dtype, window)
     return _local_heads(attend, q, pages["k"], pages["v"])
+
+
+def _write_all_slots(pos, k_leaf, index, valid):
+    """The replicated position track ``pos`` (every slot's) written for
+    every slot where the slots are sharded over a batch dim (the dry-run's
+    cells; the engine keeps them whole): the index and valid rows are
+    gathered along the K leaf's batch dims, so every replica stays equal.
+    Returns this rank's rows of ``pos``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if isinstance(k_leaf, dict):
+        k_leaf = next(iter(k_leaf.values()))
+    mesh = k_leaf.device_mesh
+    rows = [p if p.is_shard() and p.dim == 0 else tp.replicate()
+            for p in k_leaf.placements]
+
+    def whole(t):
+        return DTensor.from_local(t, mesh, rows, run_check=False) \
+            .full_tensor()
+    idx = whole(index)
+    ok = None if valid is None else whole(valid.to(torch.int32)).bool()
+    kv_page_write({"pos": pos}, {"pos": idx[:, None]},
+                  torch.remainder(idx, pos.shape[1]), ok)
+    _, (lo,) = compute_local_shape_and_global_offset((idx.shape[0],), mesh,
+                                                     rows)
+    return pos.narrow(0, lo, index.shape[0])
 
 
 def _write_placed(leaf, row, slot, valid) -> None:

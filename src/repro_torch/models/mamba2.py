@@ -14,12 +14,19 @@ chunk of at most ``CHUNK`` positions or a whole number of chunks (the
 reference's domain); any other length raises. The recurrence runs in f32
 plain PyTorch, as it is XLA in the reference; ``in_proj`` and ``out_proj``
 go through ``quantized_matmul`` (under ``serve`` the packed dequant-GEMM).
+
+Under tensor parallelism (placed parameters and a DTensor x,
+``repro_torch.distributed.tp``, whose docstring says what moves) the scan
+and the state update run on this rank's heads against its head-sharded
+``ssm`` state; the unsharded path is the same code on every head.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tp
+from repro_torch.distributed.sharding import local_tree
 from .layers import rms_norm
 from .quant import init_linear, quantized_matmul
 from .xlstm import check_chunks, silu, softplus
@@ -83,33 +90,68 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
 
 
 def mamba2_forward(p: dict, x: torch.Tensor, cfg, quant: str = "none"):
-    """Full-sequence SSD. x: (B, S, D). Returns (y, final cache)."""
+    """Full-sequence SSD. x: (B, S, D). Returns (y, final cache).
+
+    Placed (a DTensor x, ``repro_torch.distributed.tp``): ``in_proj``'s
+    column product is gathered whole along "model" (its split points do
+    not fall on shard boundaries), the conv runs on every channel, the
+    scan on this rank's heads (``tp.heads_of``), the gated output is
+    gathered for the norm over ``din``, and ``out_proj`` is row-parallel.
+    The final ``ssm`` state is head-sharded, the ``conv`` tail whole."""
     bsz, s, d = x.shape
     din, h, hp, n = _dims(cfg)
-    length = check_chunks(s, CHUNK, "mamba2_forward")
-    nc = s // length
+    check_chunks(s, CHUNK, "mamba2_forward")
+    placed = tp.is_dtensor(x)
+    heads = tp.heads_of(h) if placed else (0, h)
+    split = heads[1] < h
+    zxbcdt = tp.gathered(quantized_matmul(x, p["in_proj"], quant,
+                                          cfg.quant_format))
+    y, carry = tp.local_apply(
+        lambda z, w: _ssd(z, w, cfg, heads), zxbcdt,
+        {k: p[k] for k in _CELL},
+        placement=(tp.shard(2) if split else tp.replicate(),
+                   tp.shard(1) if split else tp.replicate()))
+    y = rms_norm(tp.gathered(y), p["norm"], cfg.norm_eps)
+    out = quantized_matmul(y.to(x.dtype), p["out_proj"], quant,
+                           cfg.quant_format)
+    conv = tp.local_apply(lambda z: xbc_raw_tail(z, cfg, s), zxbcdt)
+    return out, {"ssm": carry, "conv": conv}
 
-    zxbcdt = quantized_matmul(x, p["in_proj"], quant, cfg.quant_format)
+
+# the block's per-channel and per-head parameters (whole on every rank)
+_CELL = ("conv_w", "conv_b", "A_log", "D", "dt_bias")
+
+
+def _ssd(zxbcdt: torch.Tensor, w: dict, cfg, heads: tuple):
+    """The chunked scan of heads ``heads`` = (first, count) from the whole
+    in_proj output (B, S, 2 din + 2 N + H): (the gated output y * silu(z)
+    of those heads (B, S, count * P) f32, their final state)."""
+    bsz, s, _ = zxbcdt.shape
+    din, h, hp, n = _dims(cfg)
+    lo, nh = heads
+    length = min(CHUNK, s)
+    nc = s // length
     z, xbc, dt = _split_proj(zxbcdt, cfg)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :din].reshape(bsz, s, h, hp)              # (B,S,H,P) f32
+    xbc = _causal_conv(xbc, w["conv_w"], w["conv_b"])
+    xs = xbc[..., :din].reshape(bsz, s, h, hp)[:, :, lo:lo + nh]
     bmat = xbc[..., din:din + n]                            # (B,S,N)
     cmat = xbc[..., din + n:]                               # (B,S,N)
 
-    dt = softplus(dt.to(_F32) + p["dt_bias"])               # (B,S,H)
-    a = -torch.exp(p["A_log"])                              # (H,)
+    dt = softplus(dt.to(_F32)[..., lo:lo + nh]
+                  + w["dt_bias"][lo:lo + nh])               # (B,S,H)
+    a = -torch.exp(w["A_log"][lo:lo + nh])                  # (H,)
     loga = dt * a                                           # log decay <= 0
 
-    xs_c = (xs * dt[..., None]).reshape(bsz, nc, length, h, hp)
+    xs_c = (xs * dt[..., None]).reshape(bsz, nc, length, nh, hp)
     b_c = bmat.reshape(bsz, nc, length, n)
     c_c = cmat.reshape(bsz, nc, length, n)
-    lcum = torch.cumsum(loga.reshape(bsz, nc, length, h), dim=2)
+    lcum = torch.cumsum(loga.reshape(bsz, nc, length, nh), dim=2)
 
     # intra-chunk (attention-like, causal)
     cb = torch.einsum("bcin,bcjn->bcij", c_c, b_c)          # (B,nc,L,L)
     ldiff = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]  # (B,nc,L,L,H)
     mask = torch.tril(torch.ones((length, length), dtype=torch.bool,
-                                 device=x.device))
+                                 device=zxbcdt.device))
     # masked inside the exponent: exp of a masked (large) entry would be
     # inf and make the backward NaN through inf * 0
     decay = torch.exp(ldiff.masked_fill(~mask[None, None, :, :, None], -1e9))
@@ -121,7 +163,7 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, quant: str = "none"):
     states = torch.einsum("bcln,bclh,bclhp->bchpn",
                           b_c, decay_to_end, xs_c)          # (B,nc,H,P,N)
     chunk_decay = torch.exp(lcum[:, :, -1, :])              # (B,nc,H)
-    carry = x.new_zeros((bsz, h, hp, n), dtype=_F32)
+    carry = zxbcdt.new_zeros((bsz, nh, hp, n), dtype=_F32)
     h_prev = []
     for c in range(nc):
         h_prev.append(carry)
@@ -130,13 +172,10 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, quant: str = "none"):
 
     y_inter = torch.einsum("bcln,bchpn->bclhp", c_c, h_prev) \
         * torch.exp(lcum)[..., None]                        # decay from start
-    y = (y_intra + y_inter).reshape(bsz, s, h, hp) \
-        + xs * p["D"][None, None, :, None]
-    y = rms_norm(y.reshape(bsz, s, din) * silu(z.to(_F32)), p["norm"],
-                 cfg.norm_eps)
-    out = quantized_matmul(y.to(x.dtype), p["out_proj"], quant,
-                           cfg.quant_format)
-    return out, {"ssm": carry, "conv": xbc_raw_tail(zxbcdt, cfg, s)}
+    y = (y_intra + y_inter).reshape(bsz, s, nh, hp) \
+        + xs * w["D"][None, None, lo:lo + nh, None]
+    zl = z[..., lo * hp:(lo + nh) * hp]
+    return y.reshape(bsz, s, nh * hp) * silu(zl.to(_F32)), carry
 
 
 def xbc_raw_tail(zxbcdt: torch.Tensor, cfg, s: int) -> torch.Tensor:
@@ -158,26 +197,50 @@ def init_mamba2_cache(cfg, batch: int, device="cuda") -> dict:
 
 def mamba2_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
                   quant: str = "none"):
-    """Single-token step. x: (B, 1, D). Returns (y, new cache)."""
-    bsz = x.shape[0]
+    """Single-token step. x: (B, 1, D). Returns (y, new cache). Placed, as
+    ``mamba2_forward``: each rank updates its heads' ``ssm`` state and the
+    whole ``conv`` window, each leaf kept at its placement."""
     din, h, hp, n = _dims(cfg)
-    zxbcdt = quantized_matmul(x, p["in_proj"], quant, cfg.quant_format)
-    z, xbc_new, dt = _split_proj(zxbcdt[:, 0], cfg)          # (B, ...)
+    placed = tp.is_dtensor(x)
+    heads = tp.heads_of(h) if placed else (0, h)
+    zxbcdt = tp.unwrap(tp.gathered(quantized_matmul(x, p["in_proj"], quant,
+                                                    cfg.quant_format)))
+    y, new = _ssd_step(zxbcdt[:, 0], local_tree(cache),
+                       {k: tp.model_local(p[k]) for k in _CELL}, cfg,
+                       heads)
+    if placed:
+        y = tp.wrap(y, tp.shard(2) if heads[1] < h else tp.replicate())
+    y = rms_norm(tp.gathered(y), p["norm"], cfg.norm_eps)
+    out = quantized_matmul(y.to(x.dtype), p["out_proj"], quant,
+                           cfg.quant_format)
+    return out, {k: tp.like_leaf(cache[k], v) for k, v in new.items()}
+
+
+def _ssd_step(zxbcdt: torch.Tensor, cache: dict, w: dict, cfg,
+              heads: tuple):
+    """One recurrent step of heads ``heads`` from the whole in_proj output
+    (B, 2 din + 2 N + H) and the local cache (its ``ssm`` holds those
+    heads): (the gated output of those heads (B, 1, count * P) f32, the
+    new local cache)."""
+    bsz = zxbcdt.shape[0]
+    din, h, hp, n = _dims(cfg)
+    lo, nh = heads
+    z, xbc_new, dt = _split_proj(zxbcdt, cfg)                # (B, ...)
 
     # conv state: append the new input, convolve the window of K
     win = torch.cat([cache["conv"], xbc_new.to(_F32)[:, None, :]], dim=1)
-    xbc = silu(torch.einsum("bkc,kc->bc", win, p["conv_w"]) + p["conv_b"])
-    xs = xbc[:, :din].reshape(bsz, h, hp)
+    xbc = silu(torch.einsum("bkc,kc->bc", win, w["conv_w"]) + w["conv_b"])
+    xs = xbc[:, :din].reshape(bsz, h, hp)[:, lo:lo + nh]
     bvec = xbc[:, din:din + n]
     cvec = xbc[:, din + n:]
 
-    dt = softplus(dt.to(_F32) + p["dt_bias"])               # (B,H)
-    a = torch.exp(dt * -torch.exp(p["A_log"]))              # (B,H)
+    dt = softplus(dt.to(_F32)[:, lo:lo + nh]
+                  + w["dt_bias"][lo:lo + nh])               # (B,H)
+    a = torch.exp(dt * -torch.exp(w["A_log"][lo:lo + nh]))  # (B,H)
     hnew = cache["ssm"] * a[:, :, None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dt, xs, bvec)
-    y = torch.einsum("bn,bhpn->bhp", cvec, hnew) + xs * p["D"][None, :, None]
-    y = rms_norm(y.reshape(bsz, 1, din) * silu(z.to(_F32))[:, None, :],
-                 p["norm"], cfg.norm_eps)
-    out = quantized_matmul(y.to(x.dtype), p["out_proj"], quant,
-                           cfg.quant_format)
-    return out, {"ssm": hnew, "conv": win[:, 1:, :]}
+    y = torch.einsum("bn,bhpn->bhp", cvec, hnew) \
+        + xs * w["D"][None, lo:lo + nh, None]
+    zl = z[:, lo * hp:(lo + nh) * hp]
+    y = y.reshape(bsz, 1, nh * hp) * silu(zl.to(_F32))[:, None, :]
+    return y, {"ssm": hnew, "conv": win[:, 1:, :]}

@@ -39,16 +39,16 @@ gets its new tensors); all return f32 logits.
 ``forward`` and ``loss_fn`` are differentiable (autograd) under ``quant``
 ``none`` and ``qat``; under ``serve`` they run the packed GEMMs.
 
-Tensor parallelism (ROADMAP A13; ``repro_torch.distributed.tp``): with
-placed parameters under ``use_sharding`` the attention families compute on
+Tensor parallelism (ROADMAP A13, A13b; ``repro_torch.distributed.tp``):
+with placed parameters under ``use_sharding`` every family computes on
 each rank's weight shards, the activations carrying the reference's
 ``constrain`` annotations: the embedding is looked up in this rank's
 vocabulary rows and summed over "model" (each token's row is on one
 rank), the blocks run their products on the shards (``models/quant.py``,
-``attention.py``, ``moe.py``), the head is column-parallel over the
-vocabulary, and the entry points return the whole logits on every rank.
-The recurrent families take no placed parameters here: their sharded
-train step gathers them (``train/trainer.py``).
+``attention.py``, ``moe.py``; the recurrent blocks of ``xlstm.py`` and
+``mamba2.py`` run their cells on this rank's heads against head-sharded
+states), the head is column-parallel over the vocabulary, and the entry
+points return the whole logits on every rank.
 """
 from __future__ import annotations
 
@@ -450,10 +450,10 @@ def forward(params: dict, cfg, batch: dict, collect_cache: bool = False):
     if positions is None:
         positions = torch.arange(s, device=h.device).expand(b, s)
     if cfg.family == "ssm":
-        return _logits(params, cfg, _ssm_forward(params, cfg, h))
+        return tp.full(_logits(params, cfg, _ssm_forward(params, cfg, h)))
     if cfg.family == "hybrid":
-        return _logits(params, cfg,
-                       _hybrid_forward(params, cfg, h, positions))
+        return tp.full(_logits(params, cfg,
+                               _hybrid_forward(params, cfg, h, positions)))
     kvs = []
     for lp, window in zip(params["layers"], layer_windows(cfg)):
         h, kv = _remat(cfg, _attn_block_forward, lp, h, cfg, positions,

@@ -26,13 +26,20 @@ elementwise functions are the reference's formulas (``silu`` is
 ``jax.nn.gelu``'s default).
 
 Every function takes plain tensors and dicts; caches are dicts of f32
-tensors with the slot on axis 0, returned new by the decode steps.
+tensors with the slot on axis 0, returned new by the decode steps. Under
+tensor parallelism (placed parameters, DTensor activations and cache
+leaves, ``repro_torch.distributed.tp``, whose docstring says what moves)
+the mLSTM's q/k/v products and cell run on this rank's heads against its
+head-sharded C, n and m, the sLSTM whole on every rank; each new state
+keeps its leaf's placement.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tp
+from repro_torch.distributed.sharding import local_tree
 from .layers import rms_norm
 from .quant import init_linear, quantized_matmul
 
@@ -120,30 +127,56 @@ def _conv4(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return silu(out + b)
 
 
-def _heads(xc, xin, p, h, p_):
-    """q, k, v of the per-head block-diagonal projections (f32)."""
-    q = torch.einsum("...hp,hpq->...hq", xc, p["wq"].to(_F32))
-    k = torch.einsum("...hp,hpq->...hq", xc, p["wk"].to(_F32)) \
-        * (p_ ** -0.5)
-    v = torch.einsum("...hp,hpq->...hq", xin, p["wv"].to(_F32))
+def _heads(xc, xin, w, heads, h, p_):
+    """q, k, v of heads ``heads`` = (first, count) through the per-head
+    block-diagonal projections (f32); xc and xin hold those heads'
+    channels, ``w``'s ``wq``/``wk``/``wv`` all h heads or those."""
+    lo, n = heads
+
+    def blk(name):
+        t = w[name]
+        t = t[lo:lo + n] if t.shape[0] == h and n < h else t
+        tp.record_gemm("heads", xc, t.shape)
+        return t.to(_F32)
+    q = torch.einsum("...hp,hpq->...hq", xc, blk("wq"))
+    k = torch.einsum("...hp,hpq->...hq", xc, blk("wk")) * (p_ ** -0.5)
+    v = torch.einsum("...hp,hpq->...hq", xin, blk("wv"))
     return q, k, v
 
 
-def _mlstm_qkv(p, x_norm, cfg, quant):
-    """Shared front half: projections, conv, gates. x_norm: (B, S, D)."""
+# the mLSTM's parameters that its cell reads whole on every rank (the
+# per-head blocks wq/wk/wv are sharded over "heads")
+_MLSTM_CELL = ("conv_w", "conv_b", "wq", "wk", "wv", "w_if", "b_if")
+
+
+def _mlstm_front(up, o, w, cfg, heads, conv):
+    """Shared front half from the whole ``up`` output (..., 2 din) and the
+    output gate's pre-activation ``o`` (its ``heads`` channels, or all):
+    ``conv`` (up's xin -> xc, the conv and silu over every channel), then
+    q, k, v, the input and forget gates and the output gate of heads
+    ``heads`` = (first, count)."""
     din, h, p_ = _mlstm_dims(cfg)
-    b, s, _ = x_norm.shape
-    up = quantized_matmul(x_norm, p["up"], quant, cfg.quant_format)
-    xin, z = up.chunk(2, dim=-1)
-    xc = _conv4(xin, p["conv_w"], p["conv_b"])               # (B,S,din) f32
-    q, k, v = _heads(xc.reshape(b, s, h, p_),
-                     xin.to(_F32).reshape(b, s, h, p_), p, h, p_)
-    gates = xc @ p["w_if"].to(_F32) + p["b_if"]               # (B,S,2H)
-    logi = gates[..., :h]
-    logf = log_sigmoid(gates[..., h:])
-    o = torch.sigmoid(
-        quantized_matmul(x_norm, p["w_o"], quant, cfg.quant_format).to(_F32))
-    return xin, z, q, k, v, logi, logf, o
+    lo, n = heads
+    lead = up.shape[:-1]
+    xin = up[..., :din]
+    xc = conv(xin)                                            # f32
+    cols = slice(lo * p_, (lo + n) * p_)
+    q, k, v = _heads(xc[..., cols].reshape(*lead, n, p_),
+                     xin.to(_F32)[..., cols].reshape(*lead, n, p_), w,
+                     heads, h, p_)
+    gates = xc @ w["w_if"].to(_F32) + w["b_if"]               # (...,2H)
+    logi = gates[..., lo:lo + n]
+    logf = log_sigmoid(gates[..., h + lo:h + lo + n])
+    if o.shape[-1] != n * p_:
+        o = o[..., cols]
+    return xc, q, k, v, logi, logf, torch.sigmoid(o.to(_F32))
+
+
+def _gate_input(o, heads, h: int):
+    """The output gate's pre-activation for ``_mlstm_front``: gathered
+    whole where this rank runs every head (a column shard of ``w_o`` is
+    then not its heads' channels)."""
+    return tp.gathered(o) if heads[1] == h else o
 
 
 def _mlstm_cell_chunkwise(q, k, v, logi, logf):
@@ -200,17 +233,47 @@ def _mlstm_cell_chunkwise(q, k, v, logi, logf):
 
 def mlstm_forward(p: dict, x: torch.Tensor, cfg, quant: str = "none"):
     """Full-sequence mLSTM block (the caller adds the residual). x: (B, S,
-    D) normalized. Returns (out, final cache)."""
+    D) normalized. Returns (out, final cache).
+
+    Placed (a DTensor x, ``repro_torch.distributed.tp``): ``up``'s column
+    product is gathered whole along "model" (the xin | z split does not
+    fall on a shard boundary), the conv and the gates run on every
+    channel, q/k/v and the chunkwise cell on this rank's heads, the
+    output is gathered for the group norm over ``din``, and ``down`` is
+    row-parallel. The final C, n and m are head-sharded, ``conv`` whole."""
     din, h, p_ = _mlstm_dims(cfg)
     b, s, _ = x.shape
-    xin, z, q, k, v, logi, logf, o = _mlstm_qkv(p, x, cfg, quant)
-    hseq, state = _mlstm_cell_chunkwise(q, k, v, logi, logf)
-    hflat = rms_norm(hseq.reshape(b, s, din) * o, p["gn"], cfg.norm_eps)
-    out = hflat.to(x.dtype) * silu(z.to(_F32)).to(x.dtype)
-    out = quantized_matmul(out, p["down"], quant, cfg.quant_format)
+    placed = tp.is_dtensor(x)
+    heads = tp.heads_of(h) if placed else (0, h)
+    part = tp.shard(2) if heads[1] < h else tp.replicate()
+    state_part = tp.shard(1) if heads[1] < h else tp.replicate()
+    up = tp.gathered(quantized_matmul(x, p["up"], quant, cfg.quant_format))
+    o = _gate_input(quantized_matmul(x, p["w_o"], quant, cfg.quant_format),
+                    heads, h)
+
+    def cell(u, og, w):
+        _, q, k, v, logi, logf, og = _mlstm_front(
+            u, og, w, cfg, heads,
+            lambda xin: _conv4(xin, w["conv_w"], w["conv_b"]))
+        hseq, state = _mlstm_cell_chunkwise(q, k, v, logi, logf)
+        return hseq.reshape(b, s, heads[1] * p_) * og, state
+    hseq, state = tp.local_apply(cell, up, o,
+                                 {k: p[k] for k in _MLSTM_CELL},
+                                 placement=(part, state_part))
+    hflat = rms_norm(tp.gathered(hseq), p["gn"], cfg.norm_eps)
+    out = quantized_matmul(tp.local_apply(
+        lambda a, u: _gate_z(a, u, din, x.dtype), hflat, up), p["down"],
+        quant, cfg.quant_format)
     k_ = p["conv_w"].shape[0]
-    state["conv"] = xin.to(_F32)[:, s - (k_ - 1):, :]
+    state["conv"] = tp.local_apply(
+        lambda u: u[..., :din].to(_F32)[:, s - (k_ - 1):, :], up)
     return out, state
+
+
+def _gate_z(hflat, up, din: int, dtype):
+    """The normed cell output times silu(z), z = up's second half, each
+    cast to ``dtype`` first."""
+    return hflat.to(dtype) * silu(up[..., din:].to(_F32)).to(dtype)
 
 
 def init_mlstm_cache(cfg, batch: int, device="cuda") -> dict:
@@ -226,17 +289,44 @@ def init_mlstm_cache(cfg, batch: int, device="cuda") -> dict:
 def mlstm_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
                  quant: str = "none"):
     """Single-token mLSTM step. x: (B, 1, D) normalized. Returns (out, new
-    cache)."""
+    cache). Placed, as ``mlstm_forward``: each rank updates its heads' C,
+    n and m and the whole ``conv`` window, each leaf kept at its
+    placement."""
     din, h, p_ = _mlstm_dims(cfg)
-    b = x.shape[0]
-    up = quantized_matmul(x, p["up"], quant, cfg.quant_format)[:, 0]
-    xin, z = up.chunk(2, dim=-1)
-    win = torch.cat([cache["conv"], xin.to(_F32)[:, None, :]], dim=1)
-    xc = silu(torch.einsum("bkc,kc->bc", win, p["conv_w"]) + p["conv_b"])
-    q, k, v = _heads(xc.reshape(b, h, p_), xin.to(_F32).reshape(b, h, p_),
-                     p, h, p_)
-    gates = xc @ p["w_if"].to(_F32) + p["b_if"]
-    logi, logf = gates[:, :h], log_sigmoid(gates[:, h:])
+    placed = tp.is_dtensor(x)
+    heads = tp.heads_of(h) if placed else (0, h)
+    up = tp.gathered(quantized_matmul(x, p["up"], quant, cfg.quant_format))
+    o = _gate_input(quantized_matmul(x, p["w_o"], quant, cfg.quant_format),
+                    heads, h)
+    hvec, new = _mlstm_step(tp.unwrap(up)[:, 0], tp.unwrap(o)[:, 0],
+                            local_tree(cache),
+                            {k: tp.model_local(p[k]) for k in _MLSTM_CELL},
+                            cfg, heads)
+    if placed:
+        hvec = tp.wrap(hvec, tp.shard(2) if heads[1] < h
+                       else tp.replicate())
+    hflat = rms_norm(tp.gathered(hvec), p["gn"], cfg.norm_eps)
+    out = tp.local_apply(lambda a, u: _gate_z(a, u, din, x.dtype), hflat,
+                         up)
+    out = quantized_matmul(out, p["down"], quant, cfg.quant_format)
+    return out, {k: tp.like_leaf(cache[k], v) for k, v in new.items()}
+
+
+def _mlstm_step(up, o, cache: dict, w: dict, cfg, heads: tuple):
+    """One recurrent step of heads ``heads`` from the whole ``up`` output
+    (B, 2 din), the output gate's pre-activation (B, ...) and the local
+    cache (its C, n, m hold those heads): (the gated output of those heads
+    (B, 1, count * P) f32, the new local cache)."""
+    b = up.shape[0]
+    p_ = _mlstm_dims(cfg)[2]
+    win = []
+
+    def conv(xin):
+        win.append(torch.cat([cache["conv"], xin.to(_F32)[:, None, :]],
+                             dim=1))
+        return silu(torch.einsum("bkc,kc->bc", win[0], w["conv_w"])
+                    + w["conv_b"])
+    _, q, k, v, logi, logf, og = _mlstm_front(up, o, w, cfg, heads, conv)
     m_new = torch.maximum(logf + cache["m"], logi)
     wf = torch.exp(logf + cache["m"] - m_new)
     wi = torch.exp(logi - m_new)
@@ -246,15 +336,9 @@ def mlstm_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
     num = torch.einsum("bhp,bhpq->bhq", q, c_new)
     den = torch.maximum(torch.einsum("bhp,bhp->bh", q, n_new).abs(),
                         torch.exp(-m_new))
-    hvec = (num / den[..., None]).reshape(b, din)
-    o = torch.sigmoid(
-        quantized_matmul(x, p["w_o"], quant, cfg.quant_format)[:, 0]
-        .to(_F32))
-    hvec = rms_norm(hvec * o, p["gn"], cfg.norm_eps)
-    out = hvec[:, None, :].to(x.dtype) * \
-        silu(z.to(_F32))[:, None, :].to(x.dtype)
-    out = quantized_matmul(out, p["down"], quant, cfg.quant_format)
-    return out, {"C": c_new, "n": n_new, "m": m_new, "conv": win[:, 1:]}
+    hvec = (num / den[..., None]).reshape(b, heads[1] * p_)
+    return (hvec * og)[:, None, :], {"C": c_new, "n": n_new, "m": m_new,
+                                     "conv": win[0][:, 1:]}
 
 
 # ---------------------------------------------------------------------------
@@ -311,26 +395,39 @@ def _slstm_step(p, cfg, carry, wx_t):
 
 
 def _slstm_ffn(p, h, cfg, quant, dtype):
-    """Group norm of the cell output, then the gelu FFN."""
+    """Group norm of the cell output, then the gelu FFN (under tensor
+    parallelism ``ff_up`` column- and ``ff_down`` row-parallel)."""
     hseq = rms_norm(h, p["gn"], cfg.norm_eps).to(dtype)
     ff = quantized_matmul(hseq, p["ff_up"], quant, cfg.quant_format)
-    ff = F.gelu(ff.to(_F32), approximate="tanh").to(dtype)
+    ff = tp.local_apply(
+        lambda t: F.gelu(t.to(_F32), approximate="tanh").to(dtype), ff)
     return quantized_matmul(ff, p["ff_down"], quant, cfg.quant_format)
+
+
+def _slstm_scan(wx, w, cfg):
+    """The sequential recurrence over wx (B, S, 4d) f32 from the zero
+    state: (h of every step (B, S, d), the final state)."""
+    b, s, d = wx.shape[0], wx.shape[1], cfg.d_model
+    carry = tuple(wx.new_zeros((b, d)) for _ in range(3)) + (
+        wx.new_full((b, d), -1e30),)
+    hs = []
+    for t in range(s):
+        carry = _slstm_step(w, cfg, carry, wx[:, t])
+        hs.append(carry[2])
+    return torch.stack(hs, dim=1), dict(zip("cnhm", carry))
 
 
 def slstm_forward(p: dict, x: torch.Tensor, cfg, quant: str = "none"):
     """Full-sequence sLSTM block. x: (B, S, D) normalized. Returns (out,
-    final cache)."""
-    b, s, d = x.shape
-    wx = quantized_matmul(x, p["w"], quant, cfg.quant_format).to(_F32)
-    carry = tuple(x.new_zeros((b, d), dtype=_F32) for _ in range(3)) + (
-        x.new_full((b, d), -1e30, dtype=_F32),)
-    hs = []
-    for t in range(s):
-        carry = _slstm_step(p, cfg, carry, wx[:, t])
-        hs.append(carry[2])
-    out = _slstm_ffn(p, torch.stack(hs, dim=1), cfg, quant, x.dtype)
-    return out, {"c": carry[0], "n": carry[1], "h": carry[2], "m": carry[3]}
+    final cache). Placed, ``w``'s column product is gathered whole along
+    "model" (its z | i | f | o split falls on shard boundaries at most for
+    t = 4, and each head needs its four gates) and the recurrence runs
+    whole on every rank."""
+    wx = tp.gathered(quantized_matmul(x, p["w"], quant, cfg.quant_format))
+    hs, state = tp.local_apply(
+        lambda a, w: _slstm_scan(a.to(_F32), w, cfg), wx,
+        {"r": p["r"], "b": p["b"]})
+    return _slstm_ffn(p, hs, cfg, quant, x.dtype), state
 
 
 def init_slstm_cache(cfg, batch: int, device="cuda") -> dict:
@@ -344,10 +441,17 @@ def init_slstm_cache(cfg, batch: int, device="cuda") -> dict:
 def slstm_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
                  quant: str = "none"):
     """Single-token sLSTM step. x: (B, 1, D) normalized. Returns (out, new
-    cache)."""
-    wx = quantized_matmul(x, p["w"], quant, cfg.quant_format)[:, 0] \
-        .to(_F32)
-    c, n, h, m = _slstm_step(p, cfg, (cache["c"], cache["n"], cache["h"],
-                                      cache["m"]), wx)
-    out = _slstm_ffn(p, h[:, None, :], cfg, quant, x.dtype)
-    return out, {"c": c, "n": n, "h": h, "m": m}
+    cache). Placed, the step runs whole on every rank: the states sharded
+    over "heads" (n and m, by the reference's cache specs) are gathered
+    first, and each new state is kept at its leaf's placement."""
+    wx = tp.unwrap(tp.gathered(quantized_matmul(
+        x, p["w"], quant, cfg.quant_format)))[:, 0].to(_F32)
+    state = _slstm_step({k: tp.model_local(p[k]) for k in ("r", "b")}, cfg,
+                        tuple(tp.model_whole(cache[k]) for k in "cnhm"),
+                        wx)
+    h = state[2][:, None, :]
+    if tp.is_dtensor(x):
+        h = tp.wrap(h, tp.replicate())
+    out = _slstm_ffn(p, h, cfg, quant, x.dtype)
+    return out, {k: tp.like_leaf(cache[k], v)
+                 for k, v in zip("cnhm", state)}

@@ -41,12 +41,16 @@ at ``cache_shardings`` and runs every launch under that mesh, so each
 product runs on the rank's weight shard (``repro_torch.distributed.tp``)
 and the K/V pages stay sequence-sharded. Every rank runs the same engine
 with the same requests and samples the same tokens from the whole logits.
-Slot resets and scrubs write each rank's own part of the pages, and the KV
-sentinel's counts are summed over "model", so the guard decides alike on
-every rank. The start-up weight sweep of the ``health`` pillar reads the
-gathered weights (a diagnostic, off the serve path). The batch (slot) dims
-stay whole: a mesh whose "data" dims are larger than 1 is refused. The
-attention families only, as for the train step (ROADMAP A13b).
+The recurrent families' states are placed by the same specs: Mamba2's
+``ssm`` and the mLSTM's C, n and m head-sharded (each rank's decode
+updates its own heads), the conv windows and the sLSTM's c and h
+replicated (n and m, sharded over "heads" by name, are gathered for the
+sLSTM's whole step). Slot resets and scrubs write each rank's own part of
+the pages and states, and the KV sentinel's counts are summed over
+"model", so the guard decides alike on every rank. The start-up weight
+sweep of the ``health`` pillar reads the gathered weights (a diagnostic,
+off the serve path). The batch (slot) dims stay whole: a mesh whose
+"data" dims are larger than 1 is refused.
 """
 from __future__ import annotations
 
@@ -301,7 +305,7 @@ class ServeEngine:
         self.caches = init_caches(cfg, n_slots, max_len, self.device)
         self._mesh = None
         if tp.tp_mesh() is not None and _placed(params):
-            self._place(cfg)
+            self._place()
         self._tokens = np.zeros((n_slots, 1), np.int64)   # last sampled
         self._index = np.zeros((n_slots,), np.int64)      # absolute position
 
@@ -325,17 +329,13 @@ class ServeEngine:
                     gather_tree(params) if self._mesh is not None
                     else params)
 
-    def _place(self, cfg) -> None:
+    def _place(self) -> None:
         """Tensor-parallel serving (module docstring): keep the active mesh
         and rules for the launches and place the caches."""
         from repro_torch.distributed.sharding import active_mesh
         from repro_torch.launch.mesh import mesh_axis_sizes
         mesh = active_mesh()
         sizes = mesh_axis_sizes(mesh)
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not tensor-parallel (ROADMAP "
-                f"A13b): build its engine outside use_sharding")
         if any(n > 1 for a, n in sizes.items() if a != "model"):
             raise NotImplementedError(
                 f"a tensor-parallel engine keeps its slots whole: mesh "

@@ -35,11 +35,15 @@ Scenarios (each returns a picklable dict):
     decode step), and the first case under ``REPRO_OBS=1`` both ways;
   * ``tp_levers``: ``decode_serving_weight`` of placed packed weights with
     and without ``REPRO_GATHER_PACKED``, and products and logits with and
-    without ``REPRO_BF16_TP_REDUCE``, with what each moved.
+    without ``REPRO_BF16_TP_REDUCE``, with what each moved;
+  * ``tp_quarantine``: a guarded engine on placed parameters with a NaN
+    planted in one rank's part of a head-sharded recurrent state;
+  * ``step_collectives``: the collectives of one sharded train step.
 
-``Recorder`` logs the collectives (op, dtype, shape, group, and whether a
-weight or an activation moved) and the tensor-parallel product dispatches
-of what runs inside it; ``summarize`` turns one into picklable lists (each
+``Recorder`` logs the collectives (``repro_torch.analysis.step_cost``'s
+``CollectiveLog``: op, dtype, shape, group, and whether a weight or an
+activation moved) and the tensor-parallel product dispatches of what runs
+inside it; ``summarize`` turns one into picklable lists (each
 collective's group named by its mesh dim). The tests and chip_smoke read
 what a step moved from it.
 """
@@ -215,69 +219,26 @@ def _restore(rank, world, shape, axes, ckpt_dir, template, specs):
 # Recorder
 # ---------------------------------------------------------------------------
 
-_FUNCOL = {"all_reduce": "all_reduce",
-           "all_gather_into_tensor": "all_gather",
-           "reduce_scatter_tensor": "reduce_scatter",
-           "all_to_all_single": "all_to_all",
-           "broadcast": "broadcast"}
-_EAGER = ("all_reduce", "all_gather_into_tensor", "all_gather",
-          "reduce_scatter_tensor", "all_to_all_single", "broadcast")
-
-
 @dataclasses.dataclass
 class Recorder:
     """Collectives and product dispatches while active (a context
-    manager). ``collectives``: dicts of ``op`` (all_reduce, all_gather,
-    reduce_scatter, all_to_all, broadcast), ``dtype``, ``shape`` (of the
-    tensor handed to the collective), ``group`` (the group's name),
+    manager). ``collectives``: the records of
+    ``repro_torch.analysis.step_cost.CollectiveLog`` (``op``, ``dtype``,
+    ``shape``, ``group``, ``group_size``, ``nbytes``), each with
     ``moving`` ("weight" inside ``tp.gather_weight``, which it wraps, else
-    "activation") and ``nbytes``; ``gemms``: dicts of ``kind``, ``x`` and
-    ``w`` (the local shapes, from ``tp.on_gemm``). DTensor's collectives
-    (functional collectives) are seen through a dispatch mode, the port's
-    own eager ``torch.distributed`` calls through wrappers; all are put
-    back on exit."""
+    "activation"); ``gemms``: dicts of ``kind``, ``x`` and ``w`` (the
+    local shapes, from ``tp.on_gemm``). All hooks are put back on exit."""
 
     collectives: list = dataclasses.field(default_factory=list)
     gemms: list = dataclasses.field(default_factory=list)
 
-    def _log(self, op, t, group):
-        self.collectives.append({
-            "op": op, "dtype": str(t.dtype).replace("torch.", ""),
-            "shape": tuple(t.shape), "group": str(group),
-            "moving": self._moving,
-            "nbytes": t.numel() * t.element_size()})
-
     def __enter__(self):
-        import torch.distributed as dist
-        from torch.utils._python_dispatch import TorchDispatchMode
+        from repro_torch.analysis.step_cost import CollectiveLog
         from repro_torch.distributed import tp
         rec = self
-
-        class _Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                name = func.__name__.split(".")[0]
-                if func.namespace == "_c10d_functional" and name in _FUNCOL:
-                    group = [a for a in args if isinstance(a, str)]
-                    rec._log(_FUNCOL[name], args[0],
-                             group[-1] if group else "")
-                return func(*args, **(kwargs or {}))
-
-        self._saved = {n: getattr(dist, n) for n in _EAGER}
-
-        def wrapped(n, f):
-            @functools.wraps(f)
-            def call(tensor, *a, **k):
-                group = k.get("group")
-                t = tensor[0] if isinstance(tensor, (list, tuple)) \
-                    else tensor
-                rec._log(_FUNCOL.get(n, n),
-                         t if n != "all_gather_into_tensor" else a[0],
-                         group.group_name if group is not None
-                         else dist.group.WORLD.group_name)
-                return f(tensor, *a, **k)
-            return call
-        for n, f in self._saved.items():
-            setattr(dist, n, wrapped(n, f))
+        self._moving = "activation"
+        self._log = CollectiveLog(lambda: {"moving": rec._moving})
+        self._log.records = self.collectives
         self._prev_gemm = tp.on_gemm
 
         def on_gemm(kind, x, w):
@@ -286,7 +247,6 @@ class Recorder:
                 rec._prev_gemm(kind, x, w)
         tp.on_gemm = on_gemm
         self._prev_gather = tp.gather_weight
-        self._moving = "activation"
 
         @functools.wraps(self._prev_gather)
         def gather_weight(t):
@@ -296,16 +256,12 @@ class Recorder:
             finally:
                 rec._moving = prev
         tp.gather_weight = gather_weight
-        self._mode = _Mode()
-        self._mode.__enter__()
+        self._log.__enter__()
         return self
 
     def __exit__(self, *exc):
-        import torch.distributed as dist
         from repro_torch.distributed import tp
-        self._mode.__exit__(*exc)
-        for n, f in self._saved.items():
-            setattr(dist, n, f)
+        self._log.__exit__(*exc)
         tp.on_gemm = self._prev_gemm
         tp.gather_weight = self._prev_gather
         return False
@@ -408,8 +364,9 @@ def _tp_serve(rank, world, shape, axes, cases):
     """Per case (name, cfg, params, prompts, n_new, engine kwargs): the
     unplaced engine's tokens, the placed engine's (stepped one step at a
     time, every cache leaf's placement checked after each step) with the
-    recorder's product dispatches and collectives, the first K leaf's
-    placements, the placed engine's tokens with chunks of 1, and the
+    recorder's product dispatches and collectives, the placements of the
+    first cache leaf of each name (``cache_k``: the first K leaf's, None
+    without one), the placed engine's tokens with chunks of 1, and the
     collectives of one decode launch."""
     from repro_torch.distributed import tp
     from repro_torch.distributed.sharding import (cache_shardings,
@@ -440,11 +397,11 @@ def _tp_serve(rank, world, shape, axes, cases):
         eng.step()                             # admission: a prefill
         with Recorder() as dec:
             eng._launch_decode({})
-        ks = []
-        map_with_path(lambda path, t: ks.append(t) if path[-1] == "k"
-                      else None, eng.caches)
+        first = {}
+        map_with_path(lambda path, t: first.setdefault(path[-1], [
+            str(p) for p in t.placements]), eng.caches)
         out["cases"][name] = {
-            "cache_k": [str(p) for p in ks[0].placements],
+            "cache_k": first.get("k"), "cache_placements": first,
             "want": want, "tokens": [r.output for r in reqs],
             "tokens_chunk1": tokens_chunk1, "placements_kept": kept,
             "run": summarize(rec, mesh), "decode": summarize(dec, mesh),
@@ -535,11 +492,73 @@ def _tp_levers(rank, world, shape, axes, weights, cfg, params, tokens,
     return out
 
 
+def _tp_quarantine(rank, world, shape, axes, cases):
+    """Per case (name, cfg, params, prompts, n_new, group, leaf, slot): a
+    guarded engine on placed parameters run clean, and again with a NaN
+    written after its first step into this rank's local part of
+    ``caches[group][0][leaf]`` at ``slot`` -- on rank 0 only, in the
+    first of its heads: each request's tokens and state, the engine's
+    quarantine count, the guard's summary and whether any local cache
+    leaf still holds a NaN at the end."""
+    from repro_torch.distributed.sharding import (local_tree, map_with_path,
+                                                  param_shardings,
+                                                  place_tree, use_sharding)
+    from repro_torch.serve.engine import ServeEngine
+    mesh = _mesh(shape, axes)
+    out = {"coordinate": mesh.get_coordinate(), "cases": {}}
+    for name, cfg, params, prompts, n_new, group, leaf, slot in cases:
+        placed = place_tree(params, param_shardings(params, mesh))
+
+        def engine():
+            with use_sharding(mesh):
+                return ServeEngine(placed, cfg, n_slots=len(prompts),
+                                   max_len=16, device="cpu")
+        clean = engine().generate(prompts, n_new)
+        eng = engine()
+        reqs = [eng.submit(p, n_new) for p in prompts]
+        eng.step()
+        slots = [r.slot for r in reqs]
+        target = eng.caches[group][0][leaf]
+        if rank == 0:
+            target.to_local()[slot].view(-1)[0] = float("nan")
+        eng.run()
+        nans = []
+        map_with_path(lambda _, t: nans.append(bool(torch.isnan(t).any())
+                                               if t.is_floating_point()
+                                               else False),
+                      local_tree(eng.caches))
+        out["cases"][name] = {
+            "clean": clean, "outputs": [r.output for r in reqs],
+            "states": [r.state for r in reqs],
+            "slots_of": slots,
+            "placement": [str(p) for p in target.placements],
+            "quarantined": eng.stats.quarantined,
+            "summary": eng.guard_summary(), "nan_left": any(nans)}
+    return out
+
+
+def _step_collectives(rank, world, shape, axes, cfg, state, batch):
+    """The collectives one ``make_sharded_train_step`` of placed ``state``
+    on ``batch`` issues on this rank, as ``Recorder`` logs them."""
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.train import (AdamWConfig, make_sharded_train_step,
+                                   train_state_shardings)
+    mesh = _mesh(shape, axes)
+    placed = place_tree(state, train_state_shardings(state, mesh))
+    step = make_sharded_train_step(cfg, AdamWConfig(), mesh)
+    with Recorder() as rec:
+        step(placed, batch)
+    return {"coordinate": mesh.get_coordinate(),
+            "collectives": rec.collectives}
+
+
 SCENARIOS = {"pipeline": _pipeline, "compressed_psum": _compressed_psum,
              "compressed_step": _compressed_step,
              "sharded_step": _sharded_step, "placement": _placement,
              "restore": _restore, "tp_train": _tp_train,
-             "tp_serve": _tp_serve, "tp_levers": _tp_levers}
+             "tp_serve": _tp_serve, "tp_levers": _tp_levers,
+             "tp_quarantine": _tp_quarantine,
+             "step_collectives": _step_collectives}
 
 
 def _rank_main(scenario: str, rank: int, world: int, workdir: str) -> None:

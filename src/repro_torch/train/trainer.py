@@ -18,9 +18,8 @@ the parameters, step replicated) and ``batch_sharding`` the batch.
 compressed path: each pod rank takes its slice of the batch, the
 gradients are reduced across pods by ``compressed_psum``, the loss is
 averaged over pods, and every pod applies the same AdamW update.
-``make_sharded_train_step`` is the plain path on a mesh; for the attention
-families it computes on each rank's tensor-parallel shards
-(``repro_torch.distributed.tp``).
+``make_sharded_train_step`` is the plain path on a mesh; it computes on
+each rank's tensor-parallel shards (``repro_torch.distributed.tp``).
 
 ``publish_train_metrics`` streams a step's metrics through the
 telemetry registry (``REPRO_OBS``).
@@ -292,14 +291,14 @@ def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh, rules=None,
     (its FSDP rules): master parameters, m and v are DTensor shards at
     ``train_state_shardings`` (``place_tree``).
 
-    Compute: for the attention families (dense, moe, audio, vlm) the model
-    is tensor-parallel over "model" (``repro_torch.distributed.tp``): each
-    leaf is gathered along the other mesh dims (fsdp) once per step and
-    kept at its "model" shard, every product runs on the rank's shard, and
-    each leaf's gradient comes out at that shard (a replicated leaf's
-    summed over "model" where its ranks saw different heads). The ``ssm``
-    and ``hybrid`` families are not tensor-parallel here (ROADMAP A13b):
-    their leaves are gathered whole for compute.
+    Compute: on a mesh with a "model" dim the model of every family is
+    tensor-parallel over it (``repro_torch.distributed.tp``): each leaf is
+    gathered along the other mesh dims (fsdp) once per step and kept at
+    its "model" shard, every product runs on the rank's shard (the
+    recurrent cells on the rank's heads), and each leaf's gradient comes
+    out at that shard (a replicated leaf's summed over "model" where its
+    ranks saw different heads). Without a "model" dim the leaves are
+    gathered whole for compute.
 
     Every rank is called with the same full batch and computes the loss on
     its ``batch_sharding`` slice;
@@ -332,8 +331,7 @@ def make_sharded_train_step(cfg, opt_cfg: AdamWConfig, mesh, rules=None,
             dist.all_reduce(t, group=g)
         return (torch.zeros_like(t) + t) * (1.0 / n_batch)
 
-    tensor_parallel = cfg.family not in ("ssm", "hybrid") \
-        and "model" in sizes
+    tensor_parallel = "model" in sizes
 
     def step(state, batch):
         from torch.distributed.tensor import DTensor

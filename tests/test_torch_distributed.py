@@ -379,6 +379,7 @@ def test_dryrun_bytes_per_rank_match_reference(reference, arch):
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import applicable_shapes
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
     shapes = applicable_shapes(get_config(arch))
     assert arch in dryrun.DRYRUN_ARCHS
     memo = {}
@@ -386,11 +387,11 @@ def test_dryrun_bytes_per_rank_match_reference(reference, arch):
         trees = dryrun.build_trees(dryrun.cell_config(arch, shape), shape,
                                    memo)
         for name in MESHES:
-            r = dryrun.run_cell(arch, shape, name == "pod512", save=False,
-                                trees=trees)
-            assert r["ok"], r.get("error")
-            assert r["bytes_per_rank"] == \
-                reference["bytes"][(arch, shape, name)], (shape, name)
+            got = dryrun.bytes_per_rank(
+                trees, make_production_mesh(multi_pod=name == "pod512"),
+                dryrun.cell_rules(shape))
+            assert got == reference["bytes"][(arch, shape, name)], \
+                (shape, name)
     assert {k[1] for k in reference["bytes"] if k[0] == arch} == set(shapes)
 
 
@@ -399,14 +400,22 @@ def test_dryrun_cells_with_m2xfp_kv_pages(reference, monkeypatch):
     in the port (zamba2-7b: one K row of head_dim 112 does not encode in
     groups of 32) with its message, and one that runs has its bytes."""
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
     monkeypatch.setenv("REPRO_KV_QUANT", "m2xfp")
     for (arch, shape), want in reference["kv_bytes"].items():
         for name in MESHES:
-            r = dryrun.run_cell(arch, shape, name == "pod512", save=False)
+            try:
+                got = dryrun.bytes_per_rank(
+                    dryrun.build_trees(dryrun.cell_config(arch, shape),
+                                       shape),
+                    make_production_mesh(multi_pod=name == "pod512"),
+                    dryrun.cell_rules(shape))
+            except Exception as e:  # noqa: BLE001 -- compared below
+                got = f"{type(e).__name__}: {e}"
             if isinstance(want, str):
-                assert not r["ok"] and r["error"] == want, (arch, r)
+                assert got == want, (arch, got)
             else:
-                assert r["ok"] and r["bytes_per_rank"] == want[name], arch
+                assert got == want[name], arch
     assert isinstance(reference["kv_bytes"][("zamba2-7b", "decode_32k")],
                       str)
 
@@ -417,10 +426,12 @@ def test_dryrun_cell_small_mesh(reference):
     equal the reference's on its 2 x 4 test mesh."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import LogicalMesh
-    r = dryrun.run_cell("xlstm-125m", "decode_32k", False, save=False,
-                        mesh=LogicalMesh(("data", "model"), (2, 4)))
-    assert r["ok"] and r["ranks"] == 8
-    assert r["bytes_per_rank"] == reference["small_mesh"]
+    mesh = LogicalMesh(("data", "model"), (2, 4))
+    trees = dryrun.build_trees(dryrun.cell_config("xlstm-125m",
+                                                  "decode_32k"),
+                               "decode_32k")
+    assert mesh.size == 8
+    assert dryrun.bytes_per_rank(trees, mesh) == reference["small_mesh"]
 
 
 @pytest.mark.parametrize("name,value", [f[:2] for f in BAD_FLAGS])
@@ -525,9 +536,10 @@ def test_make_test_mesh_needs_a_process_group():
 
 
 def test_report_table_and_help(tmp_path, monkeypatch, capsys):
-    """report.py's table from the dry-run's JSONs (OK/FAIL and bytes per
-    rank on both meshes), its note that it has no roofline, and the
-    dry-run's --help naming what the port does not report."""
+    """report.py's tables from the dry-run's JSONs (OK/FAIL and bytes per
+    rank on both meshes; the roofline's terms and dominant term on
+    pod256), and the dry-run's --help naming what the port does not
+    report."""
     from repro_torch.launch import dryrun, report
     monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
     for mp in (False, True):
@@ -539,7 +551,11 @@ def test_report_table_and_help(tmp_path, monkeypatch, capsys):
     assert "| OK | OK |" in row
     assert "| xlstm-125m | train_4k | FAIL | FAIL |" in table
     assert "2 cells passed." in table
-    assert "XLA" in report.NO_ROOFLINE
+    roof = report.roofline_table(report.load("pod256", str(tmp_path)))
+    row = next(ln for ln in roof.splitlines()
+               if ln.startswith("| xlstm-125m | decode_32k |"))
+    assert any(f"**{d}**" in row for d in ("compute", "memory",
+                                            "collective"))
     monkeypatch.setattr(sys, "argv", ["dryrun", "--help"])
     with pytest.raises(SystemExit):
         dryrun.main()

@@ -1715,6 +1715,15 @@ def _tp_shard(wp: dict, x, kind: str, t: int, r: int):
             x[:, r * k // t:(r + 1) * k // t].contiguous())
 
 
+# the recurrent blocks' projections (ROADMAP A13b): zamba2-7b's Mamba2
+# in_proj and out_proj; xlstm-125m's mLSTM up, w_o, down and sLSTM w,
+# ff_up, ff_down
+TP_RECURRENT_SHAPES = [(3584, 14576, "column"), (7168, 3584, "row"),
+                       (768, 3072, "column"), (768, 1536, "column"),
+                       (1536, 768, "row"), (768, 1024, "column"),
+                       (1024, 768, "row")]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("t", [2, 4])
 @pytest.mark.parametrize("fmt", sorted(CODECS))
@@ -1725,10 +1734,23 @@ def test_cuda_kernel_tp_shards_vs_plain(fmt, t):
     rank order are within the whole launch's tolerance, the shards' and t
     ulps of the sum of |partials| of the whole launch
     (tests/test_torch_tp.py derives the last term)."""
+    _check_tp_shards(fmt, t, TP_SHAPES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("fmt", sorted(CODECS))
+def test_cuda_kernel_tp_recurrent_shards_vs_plain(fmt, t):
+    """As ``test_cuda_kernel_tp_shards_vs_plain``, on the full-width
+    recurrent projections (TP_RECURRENT_SHAPES)."""
+    _check_tp_shards(fmt, t, TP_RECURRENT_SHAPES)
+
+
+def _check_tp_shards(fmt: str, t: int, shapes) -> None:
     _need_cuda()
     pack, gemm, plain, decode, kern = CODECS[fmt]
     gen = torch.Generator("cuda").manual_seed(2)
-    for k, n, kind in TP_SHAPES:
+    for k, n, kind in shapes:
         wp = pack(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
         x = torch.randn(64, k, generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -1762,6 +1784,62 @@ def test_cuda_kernel_tp_shards_vs_plain(fmt, t):
                     torch.log2(s)) - 23), torch.zeros_like(s))
                 assert bool(((summed - whole).abs()
                              <= allowed + t * ulp).all()), (k, n, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b"])
+def test_cuda_mesh_recurrent_serve_and_train(arch):
+    """The recurrent families through the tensor-parallel dispatch on a
+    one-rank NCCL group and a 1 x 1 mesh, smoke sizes on the card: an
+    engine on placed m2xfp parameters gives the unplaced engine's tokens
+    with its states at their cache_shardings placements, and one sharded
+    train step is bit-equal to ``make_train_step`` (loss, grad_norm,
+    parameters, moments)."""
+    _need_cuda()
+    import torch.distributed as dist
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import (local_tree,
+                                                  param_shardings,
+                                                  place_tree, use_sharding)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.prequant import init_packed_params
+    from repro_torch.train import (AdamWConfig, make_sharded_train_step,
+                                   make_train_state, make_train_step,
+                                   train_state_shardings)
+    from repro_torch.tree import tree_leaves
+    cfg = smoke_config(arch, quant="serve")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_packed_params(gen, cfg, "cuda")
+    prompts = [[1, 2, 3, 4], [5, 6, 7], [8, 9, 10, 11, 12]]
+    want = ServeEngine(params, cfg, n_slots=2, max_len=32,
+                       device="cuda").generate(prompts, 6)
+    tcfg = smoke_config(arch)
+    state = make_train_state(gen, tcfg, device="cuda")
+    tok = torch.randint(0, tcfg.vocab_size, (2, 33), device="cuda",
+                        generator=gen)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    plain, pm = make_train_step(tcfg, opt)(state, batch)
+    _one_rank_nccl()
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), "cuda")
+        with use_sharding(mesh):
+            eng = ServeEngine(place_tree(params, param_shardings(
+                params, mesh)), cfg, n_slots=2, max_len=32, device="cuda")
+        assert eng.generate(prompts, 6) == want
+        placed = place_tree(state, train_state_shardings(state, mesh))
+        sharded, sm = make_sharded_train_step(tcfg, opt, mesh)(placed,
+                                                                batch)
+        got = local_tree(sharded)
+        for k in ("loss", "grad_norm", "lr"):
+            assert torch.equal(pm[k], sm[k]), k
+        for part in ("params", "opt"):
+            for a, b in zip(tree_leaves(got[part]),
+                            tree_leaves(plain[part])):
+                assert torch.equal(a, b), part
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.gpu
