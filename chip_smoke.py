@@ -130,7 +130,17 @@ printing JSON lines:
                  on every shard against their plain versions, each row
                  projection's partials summed in rank order within
                  TP_BOUND of the whole launch, each shard's time (L2
-                 flushed) beside the whole launch's; compressed_psum over
+                 flushed) beside the whole launch's; and the same for
+                 qwen2-0.5b's wo (896 -> 896) and down (4864 -> 896) at
+                 t = 8 and 16 (TP_C3), whose K-shards split 32-groups
+                 (ROADMAP C3; down's at t = 8 are whole groups): x
+                 quantized whole online (quantize_act), each rank's
+                 streams cut by the spec param_shardings gives them on a
+                 logical (1, t) mesh (codes row-sharded, scales and meta
+                 replicated), padded by kernels/layout.py::pad_row_shard
+                 to the groups its code bytes touch, #1 / #2 on each
+                 padded shard over x's columns of those groups;
+                 compressed_psum over
                  a one-pod mesh bit-equal to compress_decompress on one
                  full-width layer's gradient leaves; pipeline_apply with
                  one stage equal to the stage; the dry-run's bytes per rank
@@ -277,6 +287,18 @@ printing JSON lines:
                  version at the same block_k, four planted faults flagged
                  (scale, mask, value row, softcap), the padded row 0, and
                  times beside bound, plain and SDPA (causal and window)
+  14. examples -- the ``lint`` line: the port's static analysis
+                 (python -m repro_torch.analysis.lint) over its default
+                 targets where the card is, with no JAX there: rules,
+                 files, violations, none new against the port's baseline
+                 (asserted), seconds; then the ``examples`` line: the
+                 port's example programs run as their own processes on
+                 the card, all started together (EXAMPLES):
+                 quickstart_torch (#4 and #1, the dequant-GEMM's output
+                 held to its plain version within TOLERANCE: asserted) and
+                 serve_quantized_torch with m2xfp (#1) and mxfp4 (#2) at
+                 2 layers of d 256 (packed against bf16 MiB, tok/s), each
+                 exit status 0 (asserted)
 
 It takes no arguments: the traffic is fixed by the constants below.
 
@@ -3096,6 +3118,20 @@ MESH_LAYERS = 1
 TP_RANKS = (2, 4)
 TP_M = 8
 TP_BOUND = "TOLERANCE(whole) + sum_r TOLERANCE(r) + t ulp(sum_r |p_r|)"
+# qwen2-0.5b's row projections at shard counts where their K-shards split
+# 32-groups (ROADMAP C3): wo 896 -> 896 (112 and 56 rows a rank at t = 8
+# and 16), down 4864 -> 896 (304 rows at t = 16; its 608 at t = 8 are
+# whole groups, cut as any row shard)
+TP_C3 = ("qwen2-0.5b", (8, 16))
+# the port's example programs run by the examples line (script, arguments), all
+# started together, each within EXAMPLES_TIMEOUT_S
+EXAMPLES = [("quickstart_torch", []),
+            ("serve_quantized_torch", ["--tokens", "8", "--requests", "4",
+                                       "--slots", "2", "--layers", "2"]),
+            ("serve_quantized_torch", ["--tokens", "8", "--requests", "4",
+                                       "--slots", "2", "--layers", "2",
+                                       "--fmt", "mxfp4"])]
+EXAMPLES_TIMEOUT_S = 180
 MESH_TRAFFIC = (REQUESTS, TOKENS, (16, 128))
 MESH_TRAIN = (2, 512)
 MESH_PIPE = (4, 8, 4096)
@@ -3442,7 +3478,98 @@ def tp_shards(device) -> None:
                      whole_kernel_ms=whole_ms, **row)
                 del partials, tols
             del wp, whole_dec, whole, whole_tol, x
+    for codec, kern, pack, decode, plain in codecs:
+        tp_c3(codec, kern, pack, decode, plain, timer, gen, device)
     emit("tp", check="seconds", seconds=time.perf_counter() - t0)
+
+
+def _row_shards(wp: dict, k: int, n: int, codec: str, path: tuple, t: int):
+    """Every rank's operand of the packed (k, n) row projection ``wp`` at
+    ``path`` on t "model" ranks, as the serve path gives it: the spec
+    ``param_shardings`` gives its streams on a logical (1, t) ("data",
+    "model") mesh, then for a K-shard that splits 32-groups (ROADMAP C3:
+    ``codes`` row-sharded, ``scales`` replicated)
+    ``kernels/layout.py::pad_row_shard`` (what ``models/quant.py::
+    pad_row_shards`` builds on a placed weight), else each stream's
+    "model" shard -> (split, [(streams, (k0, k1))]): x's columns k0 .. k1
+    - 1 are the rank's operand."""
+    from repro_torch.core.codecs import PackedTensor
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.kernels.layout import pad_row_shard
+    from repro_torch.launch.mesh import LogicalMesh
+    group, leaf = path
+    tree = {"layers": [{group: {leaf: PackedTensor(wp, (k, n), codec)}}]}
+    placed = param_shardings(tree, LogicalMesh(("data", "model"), (1, t)))
+    spec = {s: sh.spec for s, sh in
+            placed["layers"][0][group][leaf].streams.items()}
+    split = spec["scales"][0] != "model"
+    if spec["codes"][0] != "model" or split != ((k // t) % 32 != 0):
+        raise AssertionError(f"{path} at t={t}: spec {spec}")
+    out = []
+    for r in range(t):
+        if split:
+            local, cols = pad_row_shard(wp, k, r, t)
+        else:
+            local = {s: v[r * v.shape[0] // t:(r + 1) * v.shape[0] // t]
+                     for s, v in wp.items()}
+            cols = (r * k // t, (r + 1) * k // t)
+        out.append(({s: v.contiguous() for s, v in local.items()}, cols))
+    return split, out
+
+
+def tp_c3(codec, kern, pack, decode, plain, timer, gen, device) -> None:
+    """The qwen2-0.5b ``tp`` lines of one codec (module docstring, phase
+    6c): the serve path's online quantization of the whole x
+    (``quantize_act``), each rank's columns of it into #1 / #2 on the
+    rank's operand (``_row_shards``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.models.quant import quantize_act
+    cfg = get_config(TP_C3[0])
+    d, q, ff = cfg.d_model, cfg.n_heads * cfg.hd, cfg.d_ff
+    for path, k, n in ((("attn", "wo"), q, d), (("mlp", "down"), ff, d)):
+        wp = pack(torch.randn(k, n, generator=gen, device=device) * 0.02)
+        x = quantize_act(torch.randn(TP_M, k, generator=gen, device=device),
+                         get_codec(codec))
+        name = "/".join(path)
+        _, whole, whole_tol, _, _ = kernel_vs_plain(
+            f"tp c3 {codec} {name}", kern, wp, decode(wp), plain, x, TP_M)
+        whole_ms = timer(lambda: kern(x, wp))
+        for t in TP_C3[1]:
+            shards, partials, tols, ratios, errs, padded = \
+                [], [], [], [], [], []
+            split, operands = _row_shards(wp, k, n, codec, path, t)
+            for r, (sp, (k0, k1)) in enumerate(operands):
+                xs = x[:, k0:k1].contiguous()
+                _, got, tol, ratio, err = kernel_vs_plain(
+                    f"tp c3 {codec} {name} t={t} r={r}", kern, sp,
+                    decode(sp), plain, xs, TP_M)
+                shards.append(timer(lambda: kern(xs, sp)))
+                partials.append(got)
+                tols.append(tol)
+                ratios.append(ratio)
+                errs.append(err)
+                padded.append(k1 - k0)
+            summed = partials[0]
+            for p in partials[1:]:
+                summed = summed + p
+            allowed = whole_tol + sum(tols) + t * _ulp_f32(
+                sum(p.abs() for p in partials))
+            diff = (summed - whole).abs()
+            emit("tp", codec=codec, kernel=kern.name, model=cfg.name,
+                 projection=name, kind="row", c3=split, K=k, N=n, t=t,
+                 M=TP_M, shard=(k // t, n), padded_k=padded,
+                 tolerance=TOLERANCE, max_ratio_to_tolerance=max(ratios),
+                 max_abs_err=max(errs), shard_kernel_ms=shards,
+                 whole_kernel_ms=whole_ms,
+                 row_sum_max_abs_err=float(diff.max()),
+                 row_sum_max_ratio_to_bound=float(
+                     (diff / allowed.clamp_min(1e-38)).max()),
+                 bound=TP_BOUND)
+            if bool((diff > allowed).any()):
+                raise AssertionError(
+                    f"tp c3 {codec} {name} t={t}: the shards' partials' "
+                    f"sum is outside {TP_BOUND}")
 
 
 def _flat_layer(layer: dict, prefix: str = ""):
@@ -3452,6 +3579,89 @@ def _flat_layer(layer: dict, prefix: str = ""):
             yield from _flat_layer(v, f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", v
+
+
+def lint_line() -> None:
+    """The ``lint`` line (module docstring, phase 14)."""
+    from repro_torch.analysis import lint
+    t0 = time.perf_counter()
+    root = lint.core.repo_root()
+    files = lint.core.iter_python_files(lint.DEFAULT_TARGETS, root)
+    live = lint.lint_paths(root=root)
+    new, stale = lint.diff_against_baseline(
+        live, lint.load_baseline(lint.baseline_path(root)))
+    emit("lint", rules=sorted(lint.RULES), targets=list(lint.DEFAULT_TARGETS),
+         files=len(files), violations=len(live), new_violations=len(new),
+         stale_baseline_entries=len(stale),
+         seconds=time.perf_counter() - t0)
+    if new or stale:
+        raise AssertionError("the port's lint: " + "; ".join(
+            [v.format() for v in new] + [str(e) for e in stale]))
+
+
+def _line_of(run: dict, pattern: str, out: str):
+    """The match of ``pattern`` in an example's output; an output without
+    it fails the line."""
+    m = re.search(pattern, out)
+    if m is None:
+        raise AssertionError(f"{run['script']} {run['args']}: no line "
+                             f"matching {pattern!r} in its output:\n{out}")
+    return m
+
+
+def examples_line() -> None:
+    """The ``examples`` line (module docstring, phase 14): EXAMPLES run
+    side by side as their own processes, every one stopped by the end."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    procs = []
+    try:
+        for name, args in EXAMPLES:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                 *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        runs = []
+        for (name, args), p in zip(EXAMPLES, procs):
+            out, err = p.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            runs.append({"script": f"examples/{name}.py", "args": args,
+                         "exit_status": p.returncode, "out": out,
+                         "err": err[-2000:]})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = []
+    for r in runs:
+        out = r.pop("out")
+        err = r.pop("err")
+        if r["exit_status"] != 0:
+            raise AssertionError(f"{r['script']} {r['args']} exited "
+                                 f"{r['exit_status']}:\n{err}")
+        if r["script"].endswith("quickstart_torch.py"):
+            m = _line_of(r, r"max \|diff\| (\S+), max ratio to tolerance "
+                         r"(\S+)", out)
+            r.update(gemm_max_abs_err=float(m.group(1).rstrip(",")),
+                     gemm_max_ratio_to_tolerance=float(m.group(2)),
+                     tolerance=TOLERANCE)
+            if not r["gemm_max_ratio_to_tolerance"] < 1:
+                raise AssertionError("quickstart_torch: the dequant-GEMM "
+                                     f"is outside {TOLERANCE} of its plain "
+                                     "version")
+        else:
+            m = _line_of(r, r"weights: (\S+) MiB bf16 -> (\S+) MiB packed",
+                         out)
+            r.update(bf16_mib=float(m.group(1)), packed_mib=float(m.group(2)))
+            if not r["packed_mib"] < r["bf16_mib"]:
+                raise AssertionError(f"{r['script']}: packed weights not "
+                                     f"smaller than bf16")
+            m = _line_of(r, r"(\S+) tok/s on (\w+)", out)
+            r.update(tokens_per_sec=float(m.group(1)), on=m.group(2))
+        lines.append(r)
+    emit("examples", runs=lines, seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -3581,6 +3791,12 @@ def main() -> int:
     lap("w4a4")
     summary["flash_attention"] = flash_phase(timer, gen, device, kernels)
     lap("flash")
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    lint_line()
+    examples_line()
+    lap("examples")
 
     for name, s in summary.items():
         if s["launches"] < 1:

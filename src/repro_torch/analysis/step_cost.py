@@ -23,7 +23,11 @@ Counted per rank, under the keys of the reference's ``HloAnalysis``:
       ``kernels.ops.packed_matmul`` (``product_scope``), whose interior
       is not counted: on the card that is a kernel no dispatch mode sees,
       on the CPU the plain version's decode and product, so both count the
-      same. Elementwise work is not counted.
+      same. A row shard whose K-shard splits 32-groups runs on a padded
+      weight (``models/quant.py::RowPadded``, ROADMAP C3) and counts
+      as what the card runs, 2·M·K_launched·N with K_launched the padded
+      K (up to two partial groups above K/t). Elementwise work is not
+      counted.
   hbm_bytes_per_device   the least traffic of the step: this rank's part
       of every tensor it is handed (parameters, optimizer state, caches,
       inputs; ``count``'s ``reads``) read once, and every tensor it
@@ -469,6 +473,7 @@ def cell_step(cfg, kind: str, batch: int, seq: int, mesh, rules=None,
                                                   param_shardings,
                                                   place_tree, use_sharding)
     from repro_torch.models.model import decode_step, forward, init_caches
+    from repro_torch.models.quant import pad_row_shards
     gen = torch.Generator()
 
     def on_device(t):
@@ -489,6 +494,8 @@ def cell_step(cfg, kind: str, batch: int, seq: int, mesh, rules=None,
     from repro_torch.serve.prequant import init_packed_params
     params = init_packed_params(gen, cfg, device)
     placed = place_tree(params, param_shardings(params, mesh, rules))
+    with use_sharding(mesh, rules):
+        placed = pad_row_shards(placed)
     if kind == "prefill":
         local = _local_inputs({k: on_device(v) for k, v in _tokens_spec(
             cfg, batch, seq).items()}, mesh, rules)

@@ -36,7 +36,7 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["EnvFlag", "declare", "defined_flags", "get_raw", "get_str",
-           "get_int", "get_bool", "env_int"]
+           "get_int", "get_bool", "env_int", "markdown_table"]
 
 _KINDS = ("bool", "int", "str")
 
@@ -152,6 +152,24 @@ def get_bool(name: str) -> bool:
     """Read of a declared bool flag: true only for ``"1"``."""
     _kind_checked(name, "bool")
     return os.environ.get(name, "") == "1"
+
+
+def markdown_table() -> str:
+    """The declared flag surface as a markdown table, in the reference's
+    form (rendered by ``python -m repro_torch.analysis.lint --list-env``)."""
+    rows = ["| Flag | Type | Default | Description |",
+            "| --- | --- | --- | --- |"]
+    for f in defined_flags():
+        extra = ""
+        if f.choices:
+            extra = " One of: " + ", ".join(f"`{c}`" for c in f.choices) + "."
+        if f.minimum is not None and f.kind == "int":
+            extra += f" Minimum {f.minimum}."
+        default = "(unset)" if f.default in (None, "") else f"`{f.default}`"
+        help_text = " ".join(f.help.split())
+        rows.append(f"| `{f.name}` | {f.kind} | {default} | "
+                    f"{help_text}{extra} |")
+    return "\n".join(rows)
 
 
 # ---------------------------------------------------------------------------

@@ -248,13 +248,20 @@ def column(x, product, w_shape):
     return wrap(out, shard(out.dim() - 1))
 
 
-def row(x, product, w_shape, out_dtype, axes):
+def row(x, product, w_shape, out_dtype, axes, cols=None):
     """Row-parallel product: ``product(x_local)`` of this rank's K-shard of
     x -> an f32 partial sum, rounded to bf16 under
     ``REPRO_BF16_TP_REDUCE``, reduced over "model" by ``constrain`` at
-    the logical ``axes`` of the output, then cast to ``out_dtype``."""
+    the logical ``axes`` of the output, then cast to ``out_dtype``.
+    ``cols`` (k0, k1) takes x's columns k0 .. k1 - 1 of the replicated x
+    instead (a padded row shard whose K-shard splits 32-groups:
+    ``models/quant.py::RowPadded``)."""
     from torch.distributed.tensor import Partial
-    xl = unwrap(to_placement(x, shard(x.dim() - 1)))
+    if cols is None:
+        xl = unwrap(to_placement(x, shard(x.dim() - 1)))
+    else:
+        xl = unwrap(to_placement(x, replicate()), Partial())[
+            ..., cols[0]:cols[1]].contiguous()
     record_gemm("row", xl, w_shape)
     part = product(xl)
     from repro_torch.models.numerics import bf16_tp_reduce

@@ -31,10 +31,12 @@ from repro_torch.core.scaling import e8m0_encode, shared_scale_exponent
 GROUP = 32
 SUBGROUP = 8
 N_SUB = GROUP // SUBGROUP
+GROUP_BYTES = GROUP // 2           # code bytes of one group along K
 
 __all__ = [
-    "GROUP", "SUBGROUP", "N_SUB", "pack_w_sgem", "pack_w_mxfp4",
-    "pack_w_nvfp4", "pack_x_elem_em", "interleave_pack", "interleave_unpack",
+    "GROUP", "SUBGROUP", "N_SUB", "GROUP_BYTES", "pack_w_sgem",
+    "pack_w_mxfp4", "pack_w_nvfp4", "pack_x_elem_em", "interleave_pack",
+    "interleave_unpack", "pad_row_shard",
 ]
 
 
@@ -52,6 +54,35 @@ def interleave_unpack(packed: torch.Tensor) -> torch.Tensor:
     lo = (pg & 0xF).to(torch.int32)
     hi = (pg >> 4).to(torch.int32)
     return torch.cat([lo, hi], dim=1).reshape(2 * k2, n)
+
+
+def pad_row_shard(streams: dict, k: int, rank: int, t: int) -> tuple:
+    """(streams, (k0, k1)): rank ``rank``'s padded operand of a packed
+    (k, N...) weight's whole ``streams`` whose ``codes`` are cut into t
+    equal blocks of byte rows, as a row shard over t ranks cuts them.
+
+    Where a block is not whole groups, its bytes hold a K-set that is not
+    a contiguous K-shard (byte row b holds k = 32 (b // 16) + b % 16 and
+    that + 16). The operand covers the groups g0 .. g1 - 1 the block
+    touches: the block's code bytes at their rows, zero bytes elsewhere
+    (code 0 decodes to +0.0 in every codec, so they add exact zeros), and
+    those groups' rows of every other row stream (a per-tensor scalar as
+    it is). It multiplies x[..., k0:k1], k0 = 32 g0, k1 = 32 g1; the ranks'
+    products sum to the whole one."""
+    codes = streams["codes"]
+    b = codes.shape[0] // t
+    lo = rank * b
+    g0, g1 = lo // GROUP_BYTES, -(-(lo + b) // GROUP_BYTES)
+    off = lo - GROUP_BYTES * g0
+    pad = codes.new_zeros((GROUP_BYTES * (g1 - g0), *codes.shape[1:]))
+    pad[off:off + b] = codes[lo:lo + b]
+    out, groups = {"codes": pad}, k // GROUP
+    for name, s in streams.items():
+        if name != "codes" and s.shape[1:] == codes.shape[1:]:
+            per = s.shape[0] // groups
+            s = s[per * g0:per * g1]
+        out.setdefault(name, s.contiguous())
+    return out, (GROUP * g0, GROUP * g1)
 
 
 def _pack_meta_fields(fields: torch.Tensor) -> torch.Tensor:

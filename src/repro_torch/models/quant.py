@@ -23,13 +23,20 @@ Tensor parallelism (ROADMAP A13): under ``use_sharding`` with a
 ``DeviceMesh``, a placed weight (a DTensor, or a PackedTensor of DTensor
 streams) runs its product on this rank's shard through
 ``repro_torch.distributed.tp``: the kernel (or its plain version) on the
-local packed streams, which are cut at 32-row group boundaries and so are
-the reference's stream rows; along "fsdp" the u8 streams are gathered
-before the product, since the kernel reads packed bytes. The activations'
-online quantization works in groups of 32 along K, so a K-shard of x
-quantizes to the same bits as its slice of the whole x; a codec whose
-activation scale is per tensor (``act_batch_invariant`` False) quantizes
-the gathered x. ``decode_serving_weight`` of placed streams gathers the
+local packed streams; along "fsdp" the u8 streams are gathered before the
+product, since the kernel reads packed bytes. The activations' online
+quantization works in groups of 32 along K, so a K-shard of x quantizes
+to the same bits as its slice of the whole x; a codec whose activation
+scale is per tensor (``act_batch_invariant`` False) quantizes the
+gathered x. A row shard whose K-shard is not whole 32-groups (ROADMAP
+C3: the reference's specs then replicate ``scales`` and ``meta`` and
+shard ``codes``, whose group-half interleave gives a rank bytes of a
+K-set that is not x's K-shard) runs the same kernel on a padded weight
+(``RowPadded``, built once by ``pad_row_shards`` where the weight is
+placed for serving) over the gathered quantized x's columns of the groups
+it touches. ``qat`` at such a shard, and the decode of such a placed
+weight (a packed expert stack), raise ``NotImplementedError`` (ROADMAP
+C4). ``decode_serving_weight`` of placed streams gathers the
 decoded weight along "fsdp", or under ``REPRO_GATHER_PACKED=1`` the u8
 streams before decoding.
 
@@ -55,13 +62,14 @@ from repro_torch import obs
 from repro_torch.core import envflags
 from repro_torch.core.codecs import PackedTensor, get_codec, packed_codecs
 from repro_torch.distributed import tp
+from repro_torch.kernels.layout import GROUP_BYTES, pad_row_shard
 from repro_torch.kernels.ops import packed_matmul
 from .numerics import dot_f32acc
 
 __all__ = [
     "fake_quant_weight", "fake_quant_act", "ste", "init_linear",
     "pack_serving_weight", "decode_serving_weight", "quantized_matmul",
-    "PackedTensor", "traced_once",
+    "PackedTensor", "traced_once", "RowPadded", "pad_row_shards",
 ]
 
 # the call sites of the serve GEMM already counted and spanned in the
@@ -179,6 +187,10 @@ def decode_serving_weight(p: PackedTensor, dtype=None) -> torch.Tensor:
     if not is_placed(p):
         return _decode_local(codec, p.streams, tail, p.shape, dtype)
     from torch.distributed.tensor import DTensor
+    if _splits_groups(p):
+        raise NotImplementedError(
+            "decode of a placed packed weight whose row shard splits "
+            "32-groups (ROADMAP C4); its product runs on a padded shard")
     streams = p.streams
     if envflags.get_bool("REPRO_GATHER_PACKED"):
         streams = {name: tp.gather_weight(s) if tp.is_dtensor(s) else s
@@ -316,11 +328,22 @@ def _tp_matmul(x, w, quant: str, fmt: str):
     product on this rank's shard of ``w`` through ``placed_product``. x is
     a DTensor activation on the "model" submesh (or a plain tensor, the
     same on every rank)."""
+    cols = None
     if isinstance(w, PackedTensor):
         tail = _tail_streams(w)
         ref = w.streams[tail[0]]
-        local = {name: tp.model_local(t) for name, t in w.streams.items()}
-        w_local = PackedTensor(local, _local_shape(w, local, tail), w.codec)
+        if isinstance(w, RowPadded):
+            w_local, cols = w.local, w.cols
+        elif _splits_groups(w):
+            raise ValueError(
+                "a placed packed weight whose row shard splits 32-groups "
+                "(ROADMAP C3) runs on its padded shard: place it with "
+                "pad_row_shards (a ServeEngine on placed parameters does)")
+        else:
+            local = {name: tp.model_local(t)
+                     for name, t in w.streams.items()}
+            w_local = PackedTensor(local, _local_shape(w, local, tail),
+                                   w.codec)
         codec = get_codec(w.codec)
     else:
         ref = w
@@ -334,11 +357,59 @@ def _tp_matmul(x, w, quant: str, fmt: str):
             quant, codec, serve,
             _packed_product if serve else dot_f32acc,
             lambda xl: _quantize_for(xl, codec, serve, fmt),
-            lambda t: fake_quant_weight(t, fmt))
+            lambda t: fake_quant_weight(t, fmt), cols)
+
+
+def _splits_groups(w: PackedTensor) -> bool:
+    """Whether placed ``w``'s ``codes`` are row-sharded over "model" in
+    shards that are not whole 32-groups (ROADMAP C3: qwen2-0.5b's ``wo``,
+    K 896, on a 16-wide "model" axis)."""
+    codes = w.streams["codes"]
+    if not tp.is_dtensor(codes):
+        return False
+    pl = tp.model_placement(codes)
+    return pl.is_shard() and pl.dim == 0 \
+        and (codes.shape[0] // tp.tp_size()) % GROUP_BYTES != 0
+
+
+class RowPadded(PackedTensor):
+    """A placed packed weight whose row shard splits 32-groups
+    (``_splits_groups``) with this rank's padded operand ``local`` (plain
+    tensors) over x's columns ``cols`` = (k0, k1), which its products
+    run on (``kernels/layout.py::pad_row_shard``). Made by
+    ``pad_row_shards`` where the weight is placed for serving."""
+
+    def __init__(self, placed: PackedTensor, local: PackedTensor,
+                 cols: tuple):
+        super().__init__(placed.streams, placed.shape, placed.codec)
+        self.local, self.cols = local, cols
+
+
+def pad_row_shards(tree):
+    """``tree`` with every placed packed weight whose row shard splits
+    32-groups as a ``RowPadded`` of it: its streams gathered whole, then
+    this rank's ``pad_row_shard``. Every rank of the active mesh runs it
+    together (it gathers); a ``ServeEngine`` on placed parameters does."""
+    if isinstance(tree, dict):
+        return {key: pad_row_shards(v) for key, v in tree.items()}
+    if isinstance(tree, list):
+        return [pad_row_shards(v) for v in tree]
+    if not isinstance(tree, PackedTensor) or isinstance(tree, RowPadded) \
+            or not _splits_groups(tree):
+        return tree
+    with torch.no_grad():
+        whole = {name: s.full_tensor() if tp.is_dtensor(s) else s
+                 for name, s in tree.streams.items()}
+        streams, cols = pad_row_shard(whole, tree.shape[0], tp.tp_rank(),
+                                      tp.tp_size())
+    local = PackedTensor(streams, (cols[1] - cols[0], *tree.shape[1:]),
+                         tree.codec)
+    return RowPadded(tree, local, cols)
 
 
 def placed_product(x, w_local, placement, dims: tuple, quant: str, codec,
-                   serve: bool, matmul, quantize_x, fake_quant_w):
+                   serve: bool, matmul, quantize_x, fake_quant_w,
+                   cols=None):
     """The tensor-parallel product of x and ``w_local``, this rank's shard
     of a placed weight whose placement along "model" is ``placement``:
     the one dispatch of the dense projections (``_tp_matmul``) and the
@@ -347,8 +418,11 @@ def placed_product(x, w_local, placement, dims: tuple, quant: str, codec,
     online with ``codec`` (a packed weight), ``qat`` that it and the shard
     are fake-quantized (``quantize_x``, ``fake_quant_w``); a row product
     of a codec whose activation scale is per tensor quantizes the gathered
-    x. ``matmul(x_local, w_local)`` gives the local f32 product, cast to
-    x's dtype (a row product's after its reduce)."""
+    x. ``cols`` (k0, k1): ``w_local`` is a padded row shard
+    (``RowPadded``) over x's columns k0 .. k1 - 1, which the product
+    takes from the gathered and quantized x. ``matmul(x_local, w_local)``
+    gives the local f32 product, cast to x's dtype (a row product's after
+    its reduce)."""
     if quant not in ("none", "serve", "qat"):
         raise ValueError(f"unknown quant mode {quant!r}")
     kind = tp.kind_of(placement, *dims)
@@ -358,12 +432,19 @@ def placed_product(x, w_local, placement, dims: tuple, quant: str, codec,
             raise NotImplementedError(
                 f"qat with codec {codec.name!r} (a per-tensor scale) on a "
                 f"weight sharded over 'model' is not tensor-parallel")
+        if kind == "row" and w_local.shape[dims[1]] % codec.group:
+            raise NotImplementedError(
+                f"qat on a weight row-sharded over 'model' whose K-shard "
+                f"({w_local.shape[dims[1]]} rows) splits the codec's "
+                f"{codec.group}-element groups (ROADMAP C4)")
         w_local = fake_quant_ste(w_local, fake_quant_w)
     out_dtype = x.dtype
     quantized = serve or quant == "qat"
-    if quantized and kind == "row" and not codec.act_batch_invariant:
-        # a per-tensor activation scale needs the whole x: quantize the
-        # gathered x; ``tp.row`` takes this rank's K-shard of it
+    if quantized and kind == "row" and (
+            cols is not None or not codec.act_batch_invariant):
+        # a per-tensor activation scale, or a padded row shard, needs the
+        # whole x: quantize the gathered x; ``tp.row`` takes this rank's
+        # K-shard of it (or its columns ``cols``)
         x = tp.wrap(quantize_x(tp.full(x)), tp.replicate())
         quantized = False
 
@@ -376,7 +457,7 @@ def placed_product(x, w_local, placement, dims: tuple, quant: str, codec,
         return tp.column(x, cast, w_local.shape)
     if kind == "row":
         return tp.row(x, product, w_local.shape, out_dtype,
-                      (None,) * x.dim())
+                      (None,) * x.dim(), cols)
     if kind == "expert":             # x's E axis: the experts' (ng, E, C, d)
         return tp.expert(x, cast, w_local.shape, dim=1)
     return tp.replicated(x, cast, w_local.shape)

@@ -72,7 +72,7 @@ from repro_torch.distributed.sharding import (cache_shardings, current_rules,
                                               use_sharding)
 from repro_torch.models.model import RECURRENT, decode_step, init_caches, \
     prefill_chunk
-from repro_torch.models.quant import traced_once
+from repro_torch.models.quant import pad_row_shards, traced_once
 from repro_torch.obs import quant_health
 from . import guard as _guard
 from .guard import (EngineFailedError, EngineGuard, GuardConfig,
@@ -331,7 +331,9 @@ class ServeEngine:
 
     def _place(self) -> None:
         """Tensor-parallel serving (module docstring): keep the active mesh
-        and rules for the launches and place the caches."""
+        and rules for the launches, place the caches, and give each packed
+        weight whose row shard splits 32-groups its padded shard
+        (``pad_row_shards``, ROADMAP C3)."""
         from repro_torch.distributed.sharding import active_mesh
         from repro_torch.launch.mesh import mesh_axis_sizes
         mesh = active_mesh()
@@ -341,6 +343,7 @@ class ServeEngine:
                 f"a tensor-parallel engine keeps its slots whole: mesh "
                 f"{sizes} has batch dims larger than 1")
         self._mesh, self._rules = mesh, current_rules()
+        self.params = pad_row_shards(self.params)
         self.caches = place_tree(self.caches,
                                  cache_shardings(self.caches, mesh))
 
@@ -410,6 +413,9 @@ class ServeEngine:
                         ).inc(stage="admit")
         self.params, _ = _guard.verify_packed_tree(
             self.params, cfg=self.cfg, source_params=self.source_params)
+        if self._mesh is not None:       # the repaired leaves' padded shards
+            with self._sharded():
+                self.params = pad_row_shards(self.params)
         self.guard.degrade()
 
     # -- launches ----------------------------------------------------------
@@ -425,20 +431,20 @@ class ServeEngine:
         sites = list(counts)
         keys, stats = self._probes.take()
         if not sites and not stats:
-            return rows.float().cpu().numpy()
+            return rows.float().cpu().numpy()  # reprolint: disable=host-sync -- the launch's one copy of its results to the host, which the sampler reads
         b, v = rows.shape
         table = torch.cat([rows.float().view(torch.int32)]
                           + [counts[s].to(torch.int32)[:, None]
                              for s in sites], dim=1)        # (B, V + sites)
         if stats:
-            flat = torch.cat([table.reshape(-1), torch.stack(stats).view(
+            flat = torch.cat([table.reshape(-1), torch.stack(stats).view(  # reprolint: disable=host-sync -- the launch's one copy of its results to the host, which the sampler reads
                 torch.int32).reshape(-1)]).cpu().numpy()
             cut = table.numel()
             self._probes.deliver(keys, flat[cut:].copy().view(
                 np.int64).reshape(len(stats), -1))
             host = flat[:cut].reshape(table.shape)
         else:
-            host = table.cpu().numpy()
+            host = table.cpu().numpy()  # reprolint: disable=host-sync -- the launch's one copy of its results to the host, which the sampler reads
         for j, site in enumerate(sites):
             self.guard.mailbox.deliver(site, host[:, v + j])
         return np.ascontiguousarray(host[:, :v]).view(np.float32)

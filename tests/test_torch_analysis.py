@@ -35,13 +35,23 @@ ARCH = "paper-llama2-7b"
 # kind -> (batch, seq)
 CELLS = {"decode": (2, 32), "prefill": (2, 32), "train": (4, 16)}
 MESH_SHAPES = {"1": None, "1x2": (1, 2)}
-# one cell per family for the command line, on both production meshes
+# one cell per family for the command line, on both production meshes,
+# and qwen2-0.5b, whose wo and down K-shards split 32-groups on the
+# 16-wide "model" axis (ROADMAP C3)
 CLI_CELLS = {"dense": "qwen3-8b", "moe": "olmoe-1b-7b",
              "audio": "musicgen-large", "vlm": "pixtral-12b",
-             "ssm": "xlstm-125m", "hybrid": "zamba2-7b"}
+             "ssm": "xlstm-125m", "hybrid": "zamba2-7b",
+             "dense-c3": "qwen2-0.5b"}
 CLI_SHAPE = "decode_32k"
-# the command line counts its 12 cells one after another in one child:
-# about 65 s alone on one core
+# qwen2-0.5b's prefill cell is counted by a second run of the command
+# line's entry in the same child, with the attention in one q tile and one
+# KV chunk (CLI_FLAGS): the same FLOPs, least traffic and collective bytes
+# as the default tiling (the unfused ops' sum differs), about 3.5 s a mesh
+# where 32 x 64 tiles take about 130 s on meta
+CLI_EXTRA = ("qwen2-0.5b", "prefill_32k")
+CLI_FLAGS = {"REPRO_ATTN_KV_CHUNK": "32768", "REPRO_ATTN_Q_TILE": "32768"}
+# the two runs count their 16 cells one after another: about 80 s alone
+# on one core (65 s before the qwen2-0.5b cells)
 CLI_TIMEOUT_S = 400
 
 
@@ -134,14 +144,20 @@ if __name__ == "__main__":
 
 def run_cli(results_dir) -> str:
     """The dry-run command line's output for CLI_CELLS' archs on
-    CLI_SHAPE and both meshes, its JSONs under ``results_dir``."""
+    CLI_SHAPE and for CLI_EXTRA, both meshes, its JSONs under
+    ``results_dir``: ``dryrun.main`` run once for each argument list, in
+    one child."""
     src = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src")
+    common = ["--mesh", "both", "--results-dir", str(results_dir)]
+    argvs = [["--arch", *CLI_CELLS.values(), "--shape", CLI_SHAPE, *common],
+             ["--arch", CLI_EXTRA[0], "--shape", CLI_EXTRA[1], *common]]
+    code = ("import sys\nfrom repro_torch.launch import dryrun\n"
+            f"for argv in {argvs!r}:\n"
+            "    sys.argv = ['dryrun', *argv]\n    dryrun.main()\n")
     return subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         *CLI_CELLS.values(), "--shape", CLI_SHAPE, "--mesh", "both",
-         "--results-dir", str(results_dir)],
-        env=dict(os.environ, PYTHONPATH=src), check=True,
+        [sys.executable, "-c", code],
+        env=dict(os.environ, PYTHONPATH=src, **CLI_FLAGS), check=True,
         timeout=CLI_TIMEOUT_S, capture_output=True, text=True).stdout
 
 
@@ -480,20 +496,24 @@ def test_roofline_is_the_reference_with_h100_constants(monkeypatch):
 
 def test_dryrun_cli_reports_cost_for_every_family(counts):
     """``python -m repro_torch.launch.dryrun --arch A B ... --shape
-    decode_32k --mesh both`` for one arch of each family (``run_cli``,
-    started by the ``counts`` fixture) finishes within CLI_TIMEOUT_S:
-    every cell OK on pod256 and pod512 with positive FLOPs, HBM bytes
-    (the least traffic below the unfused ops' sum) and collective bytes,
-    a dominant term, and its line printing dom= and frac=."""
+    decode_32k --mesh both`` for one arch of each family and qwen2-0.5b,
+    then ``--arch qwen2-0.5b --shape prefill_32k`` (``run_cli``, started
+    by the ``counts``
+    fixture) finishes within CLI_TIMEOUT_S: every cell OK on pod256 and
+    pod512 -- qwen2-0.5b's decode and prefill too, whose row products run
+    on padded shards (ROADMAP C3) -- with positive FLOPs, HBM bytes (the
+    least traffic below the unfused ops' sum) and collective bytes, a
+    dominant term, and its line printing dom= and frac=."""
     text, tmp_path = counts[2]
-    archs = list(CLI_CELLS.values())
-    for arch in archs:
-        rows = [ln for ln in text.splitlines() if f" {arch} " in ln]
+    cells = [(arch, CLI_SHAPE) for arch in CLI_CELLS.values()] + [CLI_EXTRA]
+    for arch, shape in cells:
+        rows = [ln for ln in text.splitlines()
+                if f" {arch} " in ln and f" {shape} " in ln]
         assert len(rows) == 2 and all(ln.startswith("[OK ]") for ln in rows)
         assert all("dom=" in ln and "frac=" in ln for ln in rows)
         for mesh in ("pod256", "pod512"):
             with open(tmp_path / mesh / f"{arch.replace('.', '_')}__"
-                      f"{CLI_SHAPE}.json") as f:
+                      f"{shape}.json") as f:
                 r = json.load(f)
             c, rt = r["step_cost"], r["roofline"]
             assert r["ok"] and c["flops_per_device"] > 0

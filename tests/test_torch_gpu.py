@@ -1786,6 +1786,61 @@ def _check_tp_shards(fmt: str, t: int, shapes) -> None:
                              <= allowed + t * ulp).all()), (k, n, m)
 
 
+# qwen2-0.5b's wo and down, whose K-shards at t = 8 and 16 split 32-groups
+# but for down's at t = 8 (ROADMAP C3): the rank's padded shard
+# (kernels/layout.py::pad_row_shard)
+TP_C3_SHAPES = [(896, 896), (4864, 896)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 16])
+@pytest.mark.parametrize("fmt", sorted(CODECS))
+def test_cuda_kernel_padded_row_shards_vs_plain(fmt, t):
+    """#1 / #2 on every rank's padded row shard of qwen2-0.5b's ``wo`` and
+    ``down`` at t = 8 and 16 (x's columns k0 .. k1 - 1 of the groups the
+    rank's code bytes touch), M in {1, 8, 64}: within the kernel's
+    tolerance of the plain version on that shard; the partials summed in
+    rank order within the whole launch's tolerance, the shards' and t ulps
+    of the sum of |partials|."""
+    from repro_torch.kernels.layout import pad_row_shard
+    _need_cuda()
+    pack, gemm, plain, decode, kern = CODECS[fmt]
+    gen = torch.Generator("cuda").manual_seed(3)
+    for k, n in TP_C3_SHAPES:
+        wp = pack(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+        shards = [pad_row_shard(wp, k, r, t) for r in range(t)]
+        # padded where the K-shard splits groups (down at t = 8 does not)
+        assert any((k1 - k0) != k // t for _, (k0, k1) in shards) \
+            == bool((k // t) % 32)
+        x = torch.randn(64, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for m in (1, 8, 64):
+            xm = x[:m].contiguous()
+            whole = gemm(xm, wp)
+
+            def tol(xs, sp):
+                return xs.shape[1] ** 0.5 * 2.0 ** -24 * ref.dot_f64acc(
+                    xs.abs(), decode(sp).abs())
+            allowed = tol(xm, wp)
+            parts = []
+            for sp, (k0, k1) in shards:
+                xs = xm[:, k0:k1].contiguous()
+                got = gemm(xs, sp)
+                bound = tol(xs, sp)
+                assert bool(((got - plain(xs, sp)).abs() <= bound).all()), \
+                    (k, n, m, k0)
+                parts.append(got)
+                allowed = allowed + bound
+            summed = parts[0]
+            for p in parts[1:]:
+                summed = summed + p
+            s = sum(p.abs() for p in parts)
+            ulp = torch.where(s > 0, torch.exp2(torch.floor(
+                torch.log2(s)) - 23), torch.zeros_like(s))
+            assert bool(((summed - whole).abs()
+                         <= allowed + t * ulp).all()), (k, n, m)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b"])
 def test_cuda_mesh_recurrent_serve_and_train(arch):

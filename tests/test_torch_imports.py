@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch/``, nothing in
-``chip_smoke.py`` and nothing in ``examples/train_lm_torch.py`` imports JAX, the reference package ``repro`` or
+``chip_smoke.py`` and nothing in the port's example programs
+(``examples/*_torch.py``) imports JAX, the reference package ``repro`` or
 ``ml_dtypes`` (the card's machine has none of them; bf16 checkpoint leaves
 restore by bit view), and none of them reads a ``REPRO_*`` flag through
 ``os.environ`` but ``repro_torch.core.envflags``."""
@@ -11,7 +12,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "examples" / "train_lm_torch.py"]
+    [ROOT / "chip_smoke.py", ROOT / "examples" / "train_lm_torch.py",
+     ROOT / "examples" / "quickstart_torch.py",
+     ROOT / "examples" / "serve_quantized_torch.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -45,7 +48,8 @@ def test_every_port_module_is_scanned():
             "core/dse.py", "obs/__init__.py", "obs/registry.py",
             "obs/tracing.py", "obs/quant_health.py", "models/xlstm.py",
             "models/mamba2.py", "configs/xlstm_125m.py",
-            "configs/zamba2_7b.py"} <= names
+            "configs/zamba2_7b.py", "analysis/lint/core.py",
+            "analysis/lint/rules_torch.py", "analysis/lint/cli.py"} <= names
 
 
 def _environ_reads(path: Path) -> list:

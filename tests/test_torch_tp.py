@@ -61,26 +61,34 @@ POLICIES = ("none", "dots", "dots_no_batch")
 # case -> (registry name or None for DENSE, overrides)
 DENSE = dict({k: v for k, v in SERVE_BASE.items() if k != "quant"},
              name="tp-dense")
+# wo's and down's K-shards on the 1 x 2 mesh (48 and 80 rows) split
+# 32-groups (ROADMAP C3), as qwen2-0.5b's (56 and 304 rows) do on a
+# 16-wide "model" axis
+STRADDLE = dict(d_model=96, n_heads=3, n_kv_heads=1, d_ff=160)
 CONFIGS = {"dense": (None, {}),
            "variant": ("qwen3-8b", {"qkv_bias": True}),
            "moe": ("olmoe-1b-7b", {}),
            "xlstm-smoke": ("xlstm-125m", {}),
-           "zamba2-smoke": ("zamba2-7b", {})}
+           "zamba2-smoke": ("zamba2-7b", {}),
+           "straddle": (None, STRADDLE)}
 REMAT_CASES = ("dense", "xlstm-smoke", "zamba2-smoke")
 # name -> (config case, quant, meshes)
 TP_CASES = {"dense-none": ("dense", "none", ("1x2", "2x2")),
             "dense-qat": ("dense", "qat", ("1x2",)),
             "variant-none": ("variant", "none", ("1x2", "2x2")),
-            "moe-none": ("moe", "none", ("1x2", "2x2"))}
+            "moe-none": ("moe", "none", ("1x2", "2x2")),
+            "straddle-none": ("straddle", "none", ("1x2",))}
 MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 TRAIN_B, TRAIN_S = 4, 16
 REMAT_B, REMAT_S = 2, 32
 # (name, config case, codec, overrides): SERVE_REF have reference tokens;
-# SERVE_PORT is held to the unplaced port's, which tests/test_torch_moe and
-# tests/test_torch_serve hold to the reference's
+# SERVE_PORT is held to the unplaced port's, which tests/test_torch_moe,
+# tests/test_torch_serve and tests/test_torch_codecs hold to the
+# reference's
 SERVE_REF = [("dense-m2xfp", "dense", "m2xfp", {}),
              ("dense-mxfp4", "dense", "mxfp4", {}),
-             ("variant-m2xfp", "variant", "m2xfp", {})]
+             ("variant-m2xfp", "variant", "m2xfp", {}),
+             ("straddle-m2xfp", "straddle", "m2xfp", {})]
 # (name, config case, codec, overrides, engine overrides): olmoe-smoke
 # with 64 experts, packed (K, E, N) experts whose down projection the
 # reference's specs shard over E (expert-parallel); the dense config with
@@ -88,7 +96,8 @@ SERVE_REF = [("dense-m2xfp", "dense", "m2xfp", {}),
 # so the caches are head-sharded
 SERVE_PORT = [("moe-m2xfp", "moe", "m2xfp", {"n_experts": 64}, {}),
               ("dense-kv-heads", "dense", "m2xfp", {"n_kv_heads": 2},
-               {"max_len": 33})]
+               {"max_len": 33}),
+              ("straddle-mxfp4", "straddle", "mxfp4", {}, {})]
 # a reference top-2 margin at most this is a near-tie either side may
 # break either way (the TP sums move a logit by ~1e-6 here)
 NEAR_TIE = 1e-3
@@ -619,6 +628,78 @@ def test_row_parallel_product_within_t_ulps():
         assert (d > 0).any()          # the bound is not vacuous
 
 
+def _padded_rows(k: int, t: int, r: int) -> tuple:
+    """(k0, k1): the K range of rank r's padded row shard of a packed
+    (k, N) weight at t ranks (the groups its code bytes touch)."""
+    b = k // 2 // t
+    return 32 * (r * b // 16), 32 * -(-(r + 1) * b // 16)
+
+
+@pytest.mark.parametrize("fmt", ["m2xfp", "mxfp4", "nvfp4"])
+def test_padded_row_shard_decodes_and_sums(fmt):
+    """ROADMAP C3's adapter at qwen2-0.5b's K = 896 (``wo``), for both
+    kernel codecs and nvfp4 (no kernel: its product decodes the padded
+    weight; its scales are 16-row groups): for every rank at t = 2, 4, 8
+    and 16 the padded local weight
+    (``kernels/layout.py::pad_row_shard`` of the whole streams: the
+    rank's code bytes, the other streams' rows of its groups) decodes to the whole weight's rows on the rank's K-set (the
+    k whose interleaved byte row, 16 (k // 32) + k % 16, is the rank's)
+    and to +0.0 elsewhere; the ranks' plain products of x's columns
+    k0 .. k1 - 1 summed in f32 are within t ulps of the sum of |partials|
+    of the whole product (test_row_parallel_product_within_t_ulps)."""
+    from repro_torch.core.codecs import PackedTensor, get_codec
+    from repro_torch.kernels.layout import pad_row_shard
+    from repro_torch.models.quant import (_packed_product,
+                                          decode_serving_weight,
+                                          pack_serving_weight, quantize_act)
+    rng = np.random.default_rng(7)
+    k, n = 896, 64
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)
+                         * 0.05)
+    x = torch.from_numpy(rng.standard_normal((8, k)).astype(np.float32))
+    p = pack_serving_weight(w, fmt)
+    whole = decode_serving_weight(p)
+    xq = quantize_act(x, get_codec(fmt))
+    full = _packed_product(xq, p)
+    for t in (2, 4, 8, 16):
+        b = k // 2 // t
+        parts = []
+        for r in range(t):
+            sp, (k0, k1) = pad_row_shard(p.streams, k, r, t)
+            assert (k0, k1) == _padded_rows(k, t, r)
+            pw = PackedTensor(sp, (k1 - k0, n), fmt)
+            d = decode_serving_weight(pw)
+            kk = torch.arange(k0, k1)
+            byte = 16 * (kk // 32) + kk % 16
+            mine = (byte >= r * b) & (byte < (r + 1) * b)
+            assert int(mine.sum()) == 2 * b
+            assert torch.equal(d[mine], whole[k0:k1][mine])
+            assert (d[~mine] == 0).all()
+            assert not torch.signbit(d[~mine]).any()
+            parts.append(_packed_product(xq[:, k0:k1].contiguous(), pw))
+        summed = parts[0]
+        for q in parts[1:]:
+            summed = summed + q
+        s = sum(q.abs() for q in parts)
+        ulp = torch.where(s > 0, 2.0 ** (torch.floor(torch.log2(s)) - 23),
+                          torch.zeros_like(s))
+        assert ((summed - full).abs() <= t * ulp).all(), (fmt, t)
+
+
+def test_qat_row_shard_splitting_groups_raises():
+    """``qat`` on a row shard whose K-shard splits the codec's groups
+    (a 48-row shard of 32-groups) is not built (ROADMAP C4): it raises
+    ``NotImplementedError`` naming the case before any product."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.models.quant import placed_product
+    codec = get_codec("m2xfp")
+    with pytest.raises(NotImplementedError, match="splits the codec's "
+                       "32-element groups"):
+        placed_product(torch.zeros(2, 96), torch.zeros(48, 96), Shard(0),
+                       (1, 0, None), "qat", codec, False, None, None, None)
+
+
 # (e) tensor-parallel serve ---------------------------------------------------
 
 def _serve_cases(reference):
@@ -689,6 +770,26 @@ def test_tp_engine_tokens(reference, tp_serve, name):
             for g, w in _near_tie_cut(got["tokens"], ref["tokens"],
                                       ref["margins"]):
                 assert g == w
+
+
+def test_tp_engine_row_shards_split_groups(tp_serve):
+    """ROADMAP C3 on the 1 x 2 mesh: the straddling config's ``wo`` and
+    ``down`` (K-shards of 48 and 80 rows, code bytes of 24 and 40 rows)
+    run row-parallel on each rank's padded shard, (k1 - k0, d) over the
+    groups its bytes touch, in both kernel codecs; none of them is
+    replicated."""
+    cfg = make_config("repro_torch", "straddle")
+    for r in tp_serve:
+        rank = r["coordinate"][1]
+        for name in ("straddle-m2xfp", "straddle-mxfp4"):
+            gemms = r["cases"][name]["run"]["gemms"]
+            rows = {g["w"] for g in gemms if g["kind"] == "row"}
+            for k in (cfg.n_heads * cfg.hd, cfg.d_ff):
+                k0, k1 = _padded_rows(k, 2, rank)
+                assert (k1 - k0, cfg.d_model) in rows, (name, k, rows)
+            assert not [g for g in gemms if g["kind"] == "replicated"
+                        and g["w"][-1] == cfg.d_model
+                        and g["w"][0] in (cfg.n_heads * cfg.hd, cfg.d_ff)]
 
 
 def test_tp_engine_telemetry_as_unplaced(tp_serve):
